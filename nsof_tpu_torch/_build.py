@@ -1,0 +1,164 @@
+"""Builds the port's CUDA kernels and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher and is compiled
+on first use, by ``nvcc`` for ``sm_90a``, into its own shared library under
+``build/nsof_tpu_torch/`` at the repository root.  A library's file name
+carries a hash of its source and flags, so an edited source is rebuilt and
+a stale one is never loaded.  :func:`build_all` starts one ``nvcc`` per
+source, all at once, and waits for them.
+
+The module also keeps the launch counters: each kernel wrapper adds one to
+its entry in :data:`LAUNCHES` where it launches its kernel, and nowhere
+else, so a caller can show which kernels a run went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "nsof_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no fused multiply-add contraction: the kernels then round like their
+    # plain PyTorch versions, which run one operation per rounding
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+KERNELS = (
+    "crop_windows", "poly_expansion", "update_matrices_sep",
+    "fused_box_update",
+)
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, object] = {}
+_lock = threading.Lock()
+
+
+def resolve_device(device) -> "torch.device":
+    """The device an entry point runs on: ``device`` if given, else the
+    CUDA device.  Raises ``RuntimeError`` when none was given and there is
+    no CUDA device — nothing falls back to the CPU unasked."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return str(pathlib.Path(home) / "bin" / "nvcc")
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def build_all(names=KERNELS) -> dict[str, float]:
+    """Compile every library that is missing, one ``nvcc`` per source, all
+    started together.  Returns the seconds each build took (0 when the
+    library was already there).  Raises ``RuntimeError`` if a build
+    fails or ``nvcc`` cannot be started."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    secs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _lib_path(name)
+        secs[name] = 0.0
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        try:
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        except OSError as err:
+            for proc, _, _ in procs.values():
+                proc.kill()
+                proc.wait()
+            raise RuntimeError(
+                f"cannot start nvcc ({nvcc}) to build {name}: {err}"
+            ) from err
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return secs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                build_all()
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as err:
+                raise RuntimeError(
+                    f"cannot load kernel library {path}: {err}"
+                ) from err
+            _libs[name] = lib
+        return lib
+
+
+def launcher(name: str, n_ptr: int, n_int: int):
+    """The ctypes launcher ``nsof_<name>`` of kernel ``name``: ``n_ptr``
+    pointers, ``n_int`` ints, then the stream; it returns cudaError_t."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(load(name), f"nsof_{name}")
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a launcher returned a nonzero ``cudaError_t``."""
+    if status != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError_t {status}"
+        )

@@ -1,0 +1,580 @@
+"""Batched fast Farnebäck flow: the fused route, in PyTorch and CUDA.
+
+Counterpart of :mod:`nsof_tpu.ops.farneback_fast`'s ``kernel_mode='fused'``
+route (``_farneback_fast_fused``).  Per pyramid level it runs
+
+- K2 :func:`poly_expansion` twice (prev and next), the five coefficient
+  planes (b_y, b_x, a_yy, a_xx, a_xy); at level 0 with the 3-tap Gaussian
+  pre-blur fused in;
+- K3 :func:`update_matrices_sep` once, the level's first system M: warp the
+  next frame's expansion r1 by the upscaled flow in two separable passes
+  and build the five products, stored in bfloat16;
+- K4 :func:`fused_box_update` ``iterations`` times: box-sum M, solve the
+  2×2 system for the flow, and either rebuild M from it
+  (``emit='matrices'``) or write the flow (``emit='flow'``, last one).
+
+Layouts: frames ``[B, H, W]``, planes ``[B, 5, H, W]`` with W contiguous,
+any B.  The JAX package's batch-in-lanes ``[H, W, B]`` layout and its
+``B % 128 == 0`` gate are TPU constraints and are not carried over.
+
+The logical canvas.  As in the JAX route, each level computes on a canvas
+of ``hp = ceil(hk/32)·32`` by ``wp = ceil(wk/32)·32`` pixels, and pixels of
+the valid ``hk × wk`` region near its bottom and right edges read what
+fills the slack:
+
+- r0 and r1 are expansions of the *edge-extended* image (not
+  edge-extended expansions); r1 carries a margin ring ``margin=(8, 16)``
+  so the warp can read it outside the canvas;
+- the flow read by K3 and the border scale are edge-extended from the
+  valid region;
+- M is edge-extended from the canvas, and K4's flow at the ±(radius+1)
+  halo rows of a tile is solved from that extended M.
+
+Every function here builds exactly that canvas, with the extents from 32,
+whatever tile a CUDA kernel uses; the kernels read through clamped indices
+instead of padded copies.
+
+Each kernel wrapper runs its plain PyTorch version for a CPU tensor and
+launches its CUDA kernel for a CUDA tensor, raising if it cannot.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from nsof_tpu_torch import _build
+from nsof_tpu_torch.ops.farneback import (
+    FarnebackParams,
+    _BORDER,
+    _BORDER_TABLE,
+    _cv_round,
+    _effective_levels,
+    _gaussian_blur_kernel,
+    _poly_exp_coeffs,
+)
+
+CANVAS = 32  # canvas granularity of the JAX route's tile grid
+R1_MARGIN = (8, 16)  # r1's margin ring, rows and columns
+
+
+# ── shared helpers ────────────────────────────────────────────────────────
+
+
+def _extend(x: torch.Tensor, top: int, bottom: int, left: int, right: int):
+    """Edge-extend the last two dims: rows [-top, H+bottom), cols
+    [-left, W+right), each read at the clamped index."""
+    h, w = x.shape[-2:]
+    rows = torch.arange(-top, h + bottom, device=x.device).clamp_(0, h - 1)
+    cols = torch.arange(-left, w + right, device=x.device).clamp_(0, w - 1)
+    return x.index_select(-2, rows).index_select(-1, cols)
+
+
+@functools.lru_cache(maxsize=None)
+def _border_scale_np(h: int, w: int) -> np.ndarray:
+    def axis_scale(size):
+        s = np.ones(size, np.float32)
+        for i in range(min(_BORDER, size)):
+            s[i] *= _BORDER_TABLE[i]
+            s[size - 1 - i] *= _BORDER_TABLE[i]
+        return s
+
+    return np.outer(axis_scale(h), axis_scale(w))
+
+
+@functools.lru_cache(maxsize=64)
+def border_scale(h: int, w: int, device: str) -> torch.Tensor:
+    """OpenCV's border attenuation as an ``[h, w]`` float32 tensor."""
+    return torch.from_numpy(_border_scale_np(h, w)).to(device)
+
+
+def _hat(d: torch.Tensor, k: int) -> torch.Tensor:
+    return (1.0 - (d - k).abs()).clamp(min=0.0)
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(
+            f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ── K2: polynomial expansion ──────────────────────────────────────────────
+
+
+def _poly_expansion_plain(img, n, sigma, hp, wp, blur=None, margin=(0, 0)):
+    """Plain version of K2 on the whole canvas (see :func:`poly_expansion`);
+    the order of every sum is the Pallas kernel's."""
+    g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_coeffs(n, sigma)
+    b, hk, wk = img.shape
+    mr, mc = margin
+    nb = 0 if blur is None else len(blur) // 2
+    hh = n + nb
+    ho, wo = hp + 2 * mr, wp + 2 * mc
+    src = _extend(img, mr + hh, hp - hk + mr + hh, mc + hh, wp - wk + mc + hh)
+    if blur is not None:
+        rows, cols = ho + 2 * n, wo + 2 * n
+        v = None
+        for s in range(2 * nb + 1):
+            term = float(blur[s]) * src[:, s : s + rows, :]
+            v = term if v is None else v + term
+        hb = None
+        for s in range(2 * nb + 1):
+            term = float(blur[s]) * v[:, :, s : s + cols]
+            hb = term if hb is None else hb + term
+        src = hb  # [B, ho + 2n, wo + 2n]
+
+    def vert(kern, odd):
+        acc = None if odd else float(kern[n]) * src[:, n : n + ho]
+        for t in range(1, n + 1):
+            hi = src[:, n + t : n + t + ho]
+            lo = src[:, n - t : n - t + ho]
+            term = float(kern[n + t]) * ((hi - lo) if odd else (hi + lo))
+            acc = term if acc is None else acc + term
+        return acc
+
+    def horiz(s, kern, odd):
+        acc = None if odd else float(kern[n]) * s[:, :, n : n + wo]
+        for t in range(1, n + 1):
+            hi = s[:, :, n + t : n + t + wo]
+            lo = s[:, :, n - t : n - t + wo]
+            term = float(kern[n + t]) * ((hi - lo) if odd else (hi + lo))
+            acc = term if acc is None else acc + term
+        return acc
+
+    s0, s1, s2 = vert(g, False), vert(xg, True), vert(xxg, False)
+    b1 = horiz(s0, g, False)
+    b2 = horiz(s1, g, False)
+    b3 = horiz(s0, xg, True)
+    b4 = horiz(s0, xxg, False)
+    b5 = horiz(s2, g, False)
+    b6 = horiz(s1, xg, True)
+    return torch.stack(
+        [b2 * ig11, b3 * ig11, b1 * ig03 + b5 * ig33, b1 * ig03 + b4 * ig33,
+         b6 * ig55],
+        dim=1,
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _poly_coef_tensor(n, sigma, blur, device):
+    g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_coeffs(n, sigma)
+    vals = np.concatenate([g, xg, xxg, np.asarray(blur or (), np.float32),
+                           np.asarray([ig11, ig03, ig33, ig55], np.float32)])
+    return torch.from_numpy(vals.astype(np.float32)).to(device)
+
+
+def _poly_expansion_cuda(img, n, sigma, hp, wp, blur, margin):
+    b, hk, wk = img.shape
+    mr, mc = margin
+    _check(img, "img", torch.float32, (b, hk, wk), img.device)
+    blur_t = None if blur is None else tuple(float(v) for v in blur)
+    coef = _poly_coef_tensor(n, float(sigma), blur_t, str(img.device))
+    n_blur = 0 if blur is None else len(blur)
+    ho, wo = hp + 2 * mr, wp + 2 * mc
+    out = torch.empty((b, 5, ho, wo), dtype=torch.float32, device=img.device)
+    fn = _build.launcher("poly_expansion", 3, 9)
+    _build.check(fn(
+        img.data_ptr(), coef.data_ptr(), out.data_ptr(),
+        b, hk, wk, n, n_blur, ho, wo, mr, mc, _stream(img),
+    ), "poly_expansion")
+    _build.LAUNCHES["poly_expansion"] += 1
+    return out
+
+
+def poly_expansion(img, n, sigma, hp, wp, blur=None, margin=(0, 0)):
+    """K2: ``[B, hk, wk]`` float32 image → ``[B, 5, hp+2·mr, wp+2·mc]``
+    expansion on the canvas.
+
+    Canvas pixel (Y, X) holds the expansion of the edge-extended image at
+    (Y − mr, X − mc).  ``blur`` (odd-length taps) pre-smooths the
+    edge-extended image first, as the level-0 fused blur does.
+    Counterpart of ``_poly_expansion_cm_pallas``.
+    """
+    if hp < img.shape[1] or wp < img.shape[2]:
+        raise ValueError("canvas smaller than the image")
+    if img.is_cuda:
+        return _poly_expansion_cuda(img, n, sigma, hp, wp, blur, margin)
+    return _poly_expansion_plain(img, n, sigma, hp, wp, blur, margin)
+
+
+# ── K3 / K4 shared: separable warp + system build ─────────────────────────
+
+
+def _warp_build(r0, r1, dxh, dx, dy, bsc, radius, margin):
+    """Two-pass separable warp of r1 and the five products of the system,
+    stored in bfloat16 (the tail shared by K3 and K4).
+
+    ``dxh`` is the clamped dx on rows [-(r+1), hp+r+1) (pass 1 interpolates
+    each row at its own dx), ``dx``/``dy`` the clamped flow and ``bsc`` the
+    border scale on the canvas [hp, wp]."""
+    b, _, hp, wp = r0.shape
+    r = radius
+    e = r + 1
+    mr, mc = margin
+    t = None
+    for kx in range(-r, r + 2):
+        tap = r1[:, :, mr - e : mr + hp + e, mc + kx : mc + kx + wp] * _hat(dxh, kx)[:, None]
+        t = tap if t is None else t + tap
+    acc = None
+    for ky in range(-r, r + 2):
+        tap = t[:, :, e + ky : e + ky + hp] * _hat(dy, ky)[:, None]
+        acc = tap if acc is None else acc + tap
+    r4 = (r0[:, 2] + acc[:, 2]) * 0.5
+    r5 = (r0[:, 3] + acc[:, 3]) * 0.5
+    r6 = (r0[:, 4] + acc[:, 4]) * 0.25
+    b_y = (r0[:, 0] - acc[:, 0]) * 0.5
+    b_x = (r0[:, 1] - acc[:, 1]) * 0.5
+    r2 = b_y + r4 * dy + r6 * dx
+    r3 = b_x + r6 * dy + r5 * dx
+    r2, r3, r4, r5, r6 = (v * bsc for v in (r2, r3, r4, r5, r6))
+    return torch.stack(
+        [r4 * r4 + r6 * r6, (r4 + r5) * r6, r5 * r5 + r6 * r6,
+         r4 * r2 + r6 * r3, r6 * r2 + r5 * r3],
+        dim=1,
+    ).to(torch.bfloat16)
+
+
+def _check_warp_operands(r0, r1, bsc, radius, margin):
+    b, five, hp, wp = r0.shape
+    mr, mc = margin
+    if five != 5 or mr < radius + 1 or mc < radius + 1:
+        raise ValueError(f"bad r0 {tuple(r0.shape)} / margin {margin}")
+    _check(r0, "r0", torch.float32, (b, 5, hp, wp), r0.device)
+    _check(r1, "r1", torch.float32, (b, 5, hp + 2 * mr, wp + 2 * mc), r0.device)
+    _check(bsc, "bsc", torch.float32, bsc.shape, r0.device)
+    if bsc.shape[0] > hp or bsc.shape[1] > wp:
+        raise ValueError("border scale larger than the canvas")
+
+
+# ── K3: the first system of a level ───────────────────────────────────────
+
+
+def _update_matrices_sep_plain(dx, dy, r0, r1, bsc, radius, margin=R1_MARGIN):
+    """Plain version of K3 on the whole canvas."""
+    _, _, hp, wp = r0.shape
+    hk, wk = bsc.shape
+    e = radius + 1
+    dxh = _extend(dx, e, hp - hk + e, 0, wp - wk).clamp(-radius, radius)
+    dyc = _extend(dy, 0, hp - hk, 0, wp - wk).clamp(-radius, radius)
+    bscp = _extend(bsc, 0, hp - hk, 0, wp - wk)
+    return _warp_build(r0, r1, dxh, dxh[:, e : e + hp], dyc, bscp, radius, margin)
+
+
+def _update_matrices_sep_cuda(dx, dy, r0, r1, bsc, radius, margin):
+    b, _, hp, wp = r0.shape
+    hk, wk = bsc.shape
+    _check_warp_operands(r0, r1, bsc, radius, margin)
+    _check(dx, "dx", torch.float32, (b, hk, wk), r0.device)
+    _check(dy, "dy", torch.float32, (b, hk, wk), r0.device)
+    out = torch.empty((b, 5, hp, wp), dtype=torch.bfloat16, device=r0.device)
+    fn = _build.launcher("update_matrices_sep", 6, 8)
+    _build.check(fn(
+        dx.data_ptr(), dy.data_ptr(), r0.data_ptr(), r1.data_ptr(),
+        bsc.data_ptr(), out.data_ptr(),
+        b, hk, wk, hp, wp, margin[0], margin[1], radius, _stream(r0),
+    ), "update_matrices_sep")
+    _build.LAUNCHES["update_matrices_sep"] += 1
+    return out
+
+
+def update_matrices_sep(dx, dy, r0, r1, bsc, radius, margin=R1_MARGIN):
+    """K3: the level's first system M ``[B, 5, hp, wp]`` bfloat16.
+
+    ``dx``/``dy`` ``[B, hk, wk]`` the (unclamped) flow on the valid region,
+    ``r0`` ``[B, 5, hp, wp]``, ``r1`` with its margin ring, ``bsc``
+    ``[hk, wk]``.  Counterpart of ``_update_matrices_sep_cm`` with
+    ``out_dtype=bfloat16``; the warp is the TPU kernel's two-pass one
+    (pass 1 horizontal at each row's own dx, pass 2 vertical at the output
+    pixel's dy), not a true 2-D bilinear warp.
+    """
+    if r0.is_cuda:
+        return _update_matrices_sep_cuda(dx, dy, r0, r1, bsc, radius, margin)
+    return _update_matrices_sep_plain(dx, dy, r0, r1, bsc, radius, margin)
+
+
+# ── K4: one fused Farnebäck iteration ─────────────────────────────────────
+
+
+def _win_sum_tree(a: torch.Tensor, n_out: int, win: int) -> torch.Tensor:
+    """out[..., i] = Σ_{t<win} a[..., i+t] along the last dim, summed in
+    the log-tree order of the TPU kernel's ``_win_sum_tree``."""
+    levels = [a]
+    step = 1
+    while step * 2 <= win:
+        prev = levels[-1]
+        ext = prev.shape[-1] - step
+        levels.append(prev[..., :ext] + prev[..., step : step + ext])
+        step *= 2
+    out = None
+    pos = 0
+    for kbit in range(len(levels) - 1, -1, -1):
+        if win & (1 << kbit):
+            part = levels[kbit][..., pos : pos + n_out]
+            out = part if out is None else out + part
+            pos += 1 << kbit
+    return out
+
+
+def _blocks(x: torch.Tensor, rows: int, top: int, n_blk: int) -> torch.Tensor:
+    """Split the row axis (dim 2) of ``[B, C, R, W]`` into ``n_blk``
+    overlapping windows of ``rows`` rows starting at ``top + i·CANVAS``,
+    folded into the batch: ``[B·n_blk, C, rows, W]``."""
+    b, c, _, w = x.shape
+    idx = (torch.arange(n_blk, device=x.device)[:, None] * CANVAS + top
+           + torch.arange(rows, device=x.device)[None, :])
+    out = x.index_select(2, idx.reshape(-1)).reshape(b, c, n_blk, rows, w)
+    return out.transpose(1, 2).reshape(b * n_blk, c, rows, w)
+
+
+def _fused_box_update_plain(m, r0, r1, bsc, winsize, radius, emit,
+                            margin=R1_MARGIN):
+    """Plain version of K4 on the whole canvas.
+
+    The canvas is cut into blocks of 32 rows, the TPU kernel's row tile.
+    The flow of a block's rows and its ±(radius+1) halo rows comes from a
+    vertical window sum that runs down the block as a recurrence,
+    S(r) = (S(r−1) + M(r+2m)) − M(r−1), started afresh at the block's first
+    row, then a horizontal sum in log-tree order: the sums, and so their
+    rounding, are the TPU kernel's.  A halo row's flow is solved
+    separately by each block that reads it, as there."""
+    b, _, hp, wp = m.shape
+    mm = winsize // 2
+    win = 2 * mm + 1
+    e = radius + 1
+    ext = e if emit == "matrices" else 0
+    n_blk = hp // CANVAS
+    rows = CANVAS + 2 * ext
+    me = _extend(m.float(), ext + mm, ext + mm, mm, mm)
+    slab = _blocks(me, rows + 2 * mm, 0, n_blk)  # [B·n, 5, rows+2m, wp+2m]
+    s = slab[:, :, 0]
+    for t in range(1, win):
+        s = s + slab[:, :, t]
+    vs = [s]
+    for r in range(1, rows):
+        s = s + slab[:, :, r + win - 1] - slab[:, :, r - 1]
+        vs.append(s)
+    v = torch.stack(vs, dim=2)
+    g = _win_sum_tree(v, wp, win) * (1.0 / (winsize * winsize))
+    g11, g12, g22, h1, h2 = g.unbind(1)
+    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
+    fdx = (g11 * h2 - g12 * h1) * idet  # [B·n, rows, wp]
+    fdy = (g22 * h1 - g12 * h2) * idet
+    if emit == "flow":
+        fl = torch.stack([fdx, fdy], dim=1).reshape(b, n_blk, 2, CANVAS, wp)
+        return fl.transpose(1, 2).reshape(b, 2, hp, wp)
+    hk, wk = bsc.shape
+    mr, mc = margin
+    dxh = fdx.clamp(-radius, radius)
+    dyc = fdy[:, e : e + CANVAS].clamp(-radius, radius)
+    bscp = _extend(bsc, 0, hp - hk, 0, wp - wk)[None, None]
+    out = _warp_build(
+        _blocks(r0, CANVAS, 0, n_blk),
+        _blocks(r1, rows, mr - e, n_blk),
+        dxh, dxh[:, e : e + CANVAS], dyc,
+        _blocks(bscp, CANVAS, 0, n_blk)[:, 0].repeat(b, 1, 1),
+        radius, (e, mc),
+    )
+    out = out.reshape(b, n_blk, 5, CANVAS, wp).transpose(1, 2)
+    return out.reshape(b, 5, hp, wp)
+
+
+def _fused_box_update_cuda(m, r0, r1, bsc, winsize, radius, emit, margin):
+    b, _, hp, wp = m.shape
+    _check(m, "m", torch.bfloat16, (b, 5, hp, wp), m.device)
+    if winsize // 2 > 31:
+        raise ValueError(f"winsize {winsize} exceeds the kernel's 63")
+    flow = emit == "flow"
+    if flow:
+        out = torch.empty((b, 2, hp, wp), dtype=torch.float32, device=m.device)
+        hk, wk = bsc.shape
+        # the flow emit reads neither r0, r1 nor the border scale
+        r0_ptr = r1_ptr = bsc_ptr = 0
+    else:
+        _check_warp_operands(r0, r1, bsc, radius, margin)
+        hk, wk = bsc.shape
+        out = torch.empty((b, 5, hp, wp), dtype=torch.bfloat16, device=m.device)
+        r0_ptr, r1_ptr, bsc_ptr = r0.data_ptr(), r1.data_ptr(), bsc.data_ptr()
+    fn = _build.launcher("fused_box_update", 5, 10)
+    _build.check(fn(
+        m.data_ptr(), r0_ptr, r1_ptr, bsc_ptr, out.data_ptr(),
+        b, hk, wk, hp, wp, margin[0], margin[1], winsize, radius, int(flow),
+        _stream(m),
+    ), "fused_box_update")
+    _build.LAUNCHES["fused_box_update"] += 1
+    return out
+
+
+def fused_box_update(m, r0, r1, bsc, winsize, radius, emit, margin=R1_MARGIN):
+    """K4: one Farnebäck iteration on the canvas.
+
+    Box-sums the bfloat16 system ``m`` [B, 5, hp, wp] over (2·(winsize//2)
+    +1)² in float32 (normalised by winsize²), solves the 2×2 system with
+    +1e-3 on the determinant, then ``emit='matrices'``: rebuilds M′
+    (bfloat16) from that flow as K3 does, with the flow of the ±(radius+1)
+    halo rows solved from the edge-extended M; ``emit='flow'``: returns the
+    float32 flow [B, 2, hp, wp].  Counterpart of ``_fused_box_update_cm``.
+    """
+    if emit not in ("matrices", "flow"):
+        raise ValueError(f"emit must be 'matrices' or 'flow', got {emit!r}")
+    if m.shape[2] % CANVAS:
+        raise ValueError(f"canvas height {m.shape[2]} is not a multiple of {CANVAS}")
+    if m.is_cuda:
+        return _fused_box_update_cuda(m, r0, r1, bsc, winsize, radius, emit,
+                                      margin)
+    return _fused_box_update_plain(m, r0, r1, bsc, winsize, radius, emit,
+                                   margin)
+
+
+# ── pyramid glue ──────────────────────────────────────────────────────────
+
+
+def _blur_valid(xp: torch.Tensor, k: np.ndarray) -> torch.Tensor:
+    """Separable valid-mode blur of a pre-padded ``[B, H+2n, W+2n]``
+    image, as weighted sums of shifted slices (no convolution, so no TF32
+    on the card)."""
+    taps = len(k)
+    rows = xp.shape[-2] - taps + 1
+    cols = xp.shape[-1] - taps + 1
+    v = None
+    for s in range(taps):
+        term = float(k[s]) * xp[..., s : s + rows, :]
+        v = term if v is None else v + term
+    out = None
+    for s in range(taps):
+        term = float(k[s]) * v[..., s : s + cols]
+        out = term if out is None else out + term
+    return out
+
+
+def _reflect_pad(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Reflect-101 padding (OpenCV's BORDER_DEFAULT) of ``[B, H, W]``."""
+    return F.pad(x[:, None], (n, n, n, n), mode="reflect")[:, 0]
+
+
+def _resize_hwb(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of ``[B, H, W]``: half-pixel centres, no antialias
+    (``jax.image.resize(..., 'bilinear', antialias=False)``)."""
+    if tuple(img.shape[-2:]) == (out_h, out_w):
+        return img
+    return F.interpolate(img[:, None], size=(out_h, out_w), mode="bilinear",
+                         align_corners=False, antialias=False)[:, 0]
+
+
+def _canvas(size: int) -> int:
+    return -(-size // CANVAS) * CANVAS
+
+
+def _farneback_fast_fused(img0, img1, params: FarnebackParams, radius: int):
+    """The fused route on ``[B, H, W]`` float32 frames → (dx, dy)
+    ``[B, H, W]``.  Level k ≥ 1 images are built fine→coarse as a cascade:
+    level 1 blurs the original (cv2's construction), deeper levels blur the
+    previous level with the incremental sigma."""
+    b, h, w = img0.shape
+    levels = _effective_levels(h, w, params.levels, params.pyr_scale)
+    lvl_imgs = {}
+    cur0, cur1 = img0, img1
+    for k in range(1, levels + 1):
+        scale = params.pyr_scale**k
+        sigma_k = (1.0 / scale - 1.0) * 0.5
+        wk_ = _cv_round(w * scale)
+        hk_ = _cv_round(h * scale)
+        if k == 1:
+            sz = max(_cv_round(sigma_k * 5) | 1, 3)
+            s_blur = sigma_k
+        else:
+            prev_scale = params.pyr_scale ** (k - 1)
+            sigma_prev = (1.0 / prev_scale - 1.0) * 0.5
+            tgt = sigma_k * prev_scale
+            acc = sigma_prev * prev_scale
+            s_blur = float(np.sqrt(max(tgt * tgt - acc * acc, 1e-12)))
+            sz = max(2 * int(np.ceil(3.0 * s_blur)) + 1, 3)
+        gk = _gaussian_blur_kernel(sz, s_blur)
+        nb = sz // 2
+        cur0 = _resize_hwb(_blur_valid(_reflect_pad(cur0, nb), gk), hk_, wk_)
+        cur1 = _resize_hwb(_blur_valid(_reflect_pad(cur1, nb), gk), hk_, wk_)
+        lvl_imgs[k] = (cur0, cur1)
+
+    dx = dy = None
+    for k in range(levels, -1, -1):
+        scale = params.pyr_scale**k
+        sigma = (1.0 / scale - 1.0) * 0.5
+        smooth_sz = max(_cv_round(sigma * 5) | 1, 3)
+        wk = _cv_round(w * scale)
+        hk = _cv_round(h * scale)
+        hp, wp = _canvas(hk), _canvas(wk)
+        if k == 0:
+            # level 0 never resizes: its Gaussian is fused into K2
+            i0, i1 = img0, img1
+            blur = _gaussian_blur_kernel(smooth_sz, sigma)
+        else:
+            i0, i1 = lvl_imgs[k]
+            blur = None
+        r0 = poly_expansion(i0, params.poly_n, params.poly_sigma, hp, wp, blur)
+        r1 = poly_expansion(i1, params.poly_n, params.poly_sigma, hp, wp, blur,
+                            margin=R1_MARGIN)
+        if dx is None:
+            dx = torch.zeros((b, hk, wk), dtype=torch.float32, device=img0.device)
+            dy = dx
+        else:
+            dx = _resize_hwb(dx, hk, wk) * (1.0 / params.pyr_scale)
+            dy = _resize_hwb(dy, hk, wk) * (1.0 / params.pyr_scale)
+        bsc = border_scale(hk, wk, str(img0.device))
+        m = update_matrices_sep(dx, dy, r0, r1, bsc, radius)
+        for _ in range(params.iterations - 1):
+            m = fused_box_update(m, r0, r1, bsc, params.winsize, radius,
+                                 "matrices")
+        fl = fused_box_update(m, r0, r1, bsc, params.winsize, radius, "flow")
+        dx = fl[:, 0, :hk, :wk]
+        dy = fl[:, 1, :hk, :wk]
+    return dx, dy
+
+
+def farneback_fast(
+    prev,
+    next_,
+    params: FarnebackParams = FarnebackParams(),
+    warp_radius: int = 4,
+    kernel_mode: str = "fused",
+    out_layout: str = "bhw2",
+    device=None,
+):
+    """Batched dense flow: ``[B, H, W]`` uint8/float pairs → ``[B, H, W, 2]``
+    float32 (``out_layout='bhw2'``) or the planes ``(dx, dy)``, each
+    ``[B, H, W]`` (``'planes'``; the JAX package's planes are
+    ``[H, W, B]``).
+
+    Runs on ``device`` (default: the CUDA device; raises ``RuntimeError``
+    when there is none — pass ``device='cpu'`` for the plain versions).
+    Only the fused route is ported: ``kernel_mode`` 'fused' or 'auto'
+    (both run it, at any batch size).  The other routes raise
+    ``NotImplementedError``.
+    """
+    dev = _build.resolve_device(device)
+    if kernel_mode not in ("fused", "auto"):
+        raise NotImplementedError(
+            f"kernel_mode={kernel_mode!r} is not ported yet: the pallas_sep, "
+            "pallas and xla routes (kernels K5-K7) are ROADMAP.md queue 2"
+        )
+    if params.winsize // 2 > 8 or params.poly_n > 7:
+        raise NotImplementedError(
+            "presets outside the fused route's halos (winsize//2 > 8 or "
+            "poly_n > 7) take the pallas_sep route in the JAX package "
+            "(kernels K5/K6, ROADMAP.md queue 2), not ported yet"
+        )
+    img0 = torch.as_tensor(prev).to(dev, torch.float32).contiguous()
+    img1 = torch.as_tensor(next_).to(dev, torch.float32).contiguous()
+    dx, dy = _farneback_fast_fused(img0, img1, params, warp_radius)
+    if out_layout == "planes":
+        return dx, dy
+    return torch.stack([dx, dy], dim=-1)

@@ -1,0 +1,97 @@
+"""The port stands alone: it imports neither ``jax`` nor ``nsof_tpu``,
+runs on the card unless the caller asks for the CPU, and a kernel wrapper
+on a CUDA tensor launches its kernel or raises."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nsof_tpu_torch import _build
+from nsof_tpu_torch.config import DATASETS
+from nsof_tpu_torch.ops import farneback_fast as tff
+from nsof_tpu_torch.ops import roi as troi
+from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "nsof_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = {"jax", "jaxlib", "nsof_tpu", "flax", "optax"} & set(_imported_roots(path))
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import nsof_tpu_torch, nsof_tpu_torch.pipelines.segmentation\n"
+        "import nsof_tpu_torch.ops.farneback_fast, nsof_tpu_torch._build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'nsof_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_device_and_no_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = DATASETS["tabletennis"]
+    mem = np.zeros((1, 16, 16), np.uint8)
+    frames = np.zeros((1, 160, 160), np.uint8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        seg_batch_fast(mem, frames, frames, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tff.farneback_fast(frames, frames)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_without_kernel_library(cuda_device, monkeypatch, tmp_path):
+    """With no library to load and no nvcc to build one, every wrapper
+    raises on a CUDA tensor instead of falling back to its plain version."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "empty")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_fns", {})
+    dev = cuda_device
+    b, hk, wk, hp, wp = 2, 40, 50, 64, 64
+    img = torch.zeros((b, hk, wk), device=dev)
+    r0 = torch.zeros((b, 5, hp, wp), device=dev)
+    r1 = torch.zeros((b, 5, hp + 16, wp + 32), device=dev)
+    bsc = tff.border_scale(hk, wk, str(dev))
+    m = torch.zeros((b, 5, hp, wp), device=dev, dtype=torch.bfloat16)
+    calls = [
+        lambda: troi.crop_windows_batch(
+            torch.zeros((b, 64, 64), dtype=torch.uint8, device=dev),
+            torch.zeros(b, dtype=torch.int32, device=dev),
+            torch.zeros(b, dtype=torch.int32, device=dev), 16, 16),
+        lambda: tff.poly_expansion(img, 5, 1.2, hp, wp),
+        lambda: tff.update_matrices_sep(img, img, r0, r1, bsc, 3),
+        lambda: tff.fused_box_update(m, r0, r1, bsc, 15, 3, "matrices"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError):
+            call()
