@@ -6,7 +6,8 @@ Builds the port's CUDA kernels (K1–K4) from ``nsof_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card, drives the main path
 (``seg_batch_fast`` on bench.py's 640×480 workload: 256×384 window, grasp
 preset, memsize 80, warp radius 3) at B = 256, checks that it went through
-every kernel and agrees with the plain route, and times it.
+every kernel, made no host synchronisation and agrees with the plain
+route, and times it.
 
 Each phase prints one JSON line.  The line before the last is the card's
 name and power limit as ``nvidia-smi`` reports them, the one before that
@@ -18,12 +19,14 @@ script exits with code 1 before printing any result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -83,6 +86,25 @@ def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def host_syncs(fn) -> dict:
+    """Host-device synchronisations made by one call of ``fn``, by the
+    Python line that made them (CUDA sync debug mode warns at each)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # each sync warns "called a synchronizing CUDA operation"; the mode
+    # also warns once that it is a prototype, which is not a sync
+    where = collections.Counter(f"{w.filename}:{w.lineno}" for w in caught
+                                if "called a synchronizing" in str(w.message))
+    return dict(where)
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate or float32
     operations over the card's float32 rate, whichever is larger."""
@@ -136,8 +158,7 @@ def plain_route():
     of the main path on the card)."""
     saved = (troi.crop_windows_batch, tff.poly_expansion,
              tff.update_matrices_sep, tff.fused_box_update)
-    troi.crop_windows_batch = lambda f, oy, ox, wh, ww: (
-        troi._crop_windows_plain(f, oy, ox, wh, ww), oy, ox)
+    troi.crop_windows_batch = troi._crop_windows_plain
     tff.poly_expansion = tff._poly_expansion_plain
     tff.update_matrices_sep = tff._update_matrices_sep_plain
     tff.fused_box_update = tff._fused_box_update_plain
@@ -204,7 +225,7 @@ def main() -> None:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(1)
     dev = torch.device("cuda", torch.cuda.current_device())
-    name = torch.cuda.get_device_name(dev)
+    name = torch.cuda.get_device_name(0)
     smi = smi_line()
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -222,7 +243,7 @@ def main() -> None:
     frames = torch.from_numpy(rng.integers(0, 256, (B_CHECK, H, W), dtype=np.uint8)).to(dev)
     oys = torch.from_numpy(rng.integers(0, H - hk + 1, B_CHECK).astype(np.int32)).to(dev)
     oxs = torch.from_numpy(rng.integers(0, W - wk + 1, B_CHECK).astype(np.int32)).to(dev)
-    got, _, _ = troi.crop_windows_batch(frames, oys, oxs, hk, wk)
+    got = troi.crop_windows_batch(frames, oys, oxs, hk, wk)
     ref = troi._crop_windows_plain(frames, oys, oxs, hk, wk)
     errs["crop_windows"] = (got.int() - ref.int()).abs().max().item()
     if errs["crop_windows"] != 0:
@@ -294,10 +315,17 @@ def main() -> None:
         raise AssertionError("the mask is empty inside the ROI")
     if out["mask"].sum() != inside.sum():
         raise AssertionError("the mask has pixels outside the ROI")
+    probe = host_syncs(lambda: out["box"].sum().item())
+    if sum(probe.values()) != 1:
+        raise AssertionError(f"the sync counter saw {probe} in one .item()")
+    syncs = host_syncs(lambda: seg_batch_fast(mem, prev, nxt, cfg, return_flow=True))
     emit({"phase": "main_path", "batch": B_MAIN, "frame": [H, W], "window": list(WIN),
           "launches_per_call": launches, "flow_max_abs_err_px": flow_err.max().item(),
           "flow_mean_abs_err_px": flow_err.mean().item(), "mask_agreement": mask_agree,
-          "mask_fraction_in_roi": (inside > 0).float().mean().item(), "box": box})
+          "mask_fraction_in_roi": (inside > 0).float().mean().item(), "box": box,
+          "host_syncs_per_call": sum(syncs.values()), "host_sync_sites": syncs})
+    if syncs:
+        raise AssertionError(f"the main path synchronised with the host: {syncs}")
 
     variants = [bench_inputs(B_MAIN, v, dev) for v in range(3)]
     samples = []
@@ -330,6 +358,10 @@ def main() -> None:
     h1, w1 = hp + 2 * tff.R1_MARGIN[0], wp + 2 * tff.R1_MARGIN[1]
     e = RADIUS + 1
     px = b * hp * wp
+    # the warp reads r1 at rows y + ky and columns x + kx, ky, kx in
+    # [-r, r + 1]: the canvas and a ring of r (top, left) and r + 1
+    # (bottom, right), not the whole margin canvas
+    r1_read = b * 5 * (hp + 2 * RADIUS + 1) * (wp + 2 * RADIUS + 1) * 4
     # operations with every intermediate computed once: the blur (2 passes
     # of 4·nb+1), the expansion's vertical (9n+1) and horizontal (18n+2)
     # sums and its 9 final operations; the warp's pass 1 once per row
@@ -342,8 +374,8 @@ def main() -> None:
         "poly_expansion": (b * hk * wk * 4 + b * 5 * h1 * w1 * 4,
                            b * h1 * w1 * (2 * (4 * nb + 1) + 27 * n_ + 12)),
         "update_matrices_sep": (b * hk * wk * 4 * 2 + hk * wk * 4 + px * 20
-                                + b * 5 * h1 * w1 * 4 + px * 10, px * warp_ops),
-        "fused_box_update": (px * 10 + px * 20 + b * 5 * h1 * w1 * 4 + hk * wk * 4
+                                + r1_read + px * 10, px * warp_ops),
+        "fused_box_update": (px * 10 + px * 20 + r1_read + hk * wk * 4
                              + px * 10, px * (box_ops + warp_ops)),
     }
     calls = {

@@ -1,17 +1,18 @@
 // K4: one Farnebäck iteration, fused: box sum → 2×2 solve → warp → M'.
 //
 // Replaces nsof_tpu/ops/farneback_fast.py::_fused_box_update_kernel
-// (driver _fused_box_update_cm): box-sum the bfloat16 system M over
+// (called through _fused_box_update_cm): box-sum the bfloat16 system M over
 // (2m+1)² in float32, solve the 2×2 system (+1e-3 on the determinant) on
 // the tile's rows and, for emit = matrices, on its ±(r+1) halo rows too;
 // then warp r1 by that flow and write M' in bfloat16 (emit = matrices) or
 // write the float32 flow (emit = flow).  The intermediate flow never
 // leaves shared memory.
 //
-// Bound: per canvas pixel it must read M (10 bytes), r0 (20) and write M'
-// (10), with ~40 bytes more of r1 where the warp reads its own plane:
-// ~80 bytes against ~1,000 flops (box sums, solve, the (2r+2)² warp), so
-// at the card's float32 rate the arithmetic, not memory, bounds it.
+// Bound: per canvas pixel it must read M (10 bytes), r0 (20), r1 (20 and
+// its margin) and write M' (10): ~64 bytes.  With every intermediate
+// computed once (warp pass 1 once per row) the work is ~330 flops a pixel,
+// below the float32 ridge, so the bytes bound it.  This first version does
+// ~1,000 flops a pixel: it recomputes pass 1 for each output row.
 // Design: one block per (sample, 32×32 tile).  The tile's rows are the
 // canvas's 32-row blocks, because the vertical window sum is the TPU
 // kernel's running recurrence S(r) = (S(r-1) + M(r+2m)) - M(r-1), started

@@ -1,20 +1,21 @@
 // K2: Farnebäck polynomial expansion on the level's canvas.
 //
-// Replaces nsof_tpu/ops/farneback_fast.py::_poly_expansion_kernel (driver
-// _poly_expansion_cm_pallas): from the edge-extended image, optionally
+// Replaces nsof_tpu/ops/farneback_fast.py::_poly_expansion_kernel (called
+// through _poly_expansion_cm_pallas): from the edge-extended image, optionally
 // pre-smoothed by the level-0 Gaussian (fused, edge borders), the five
 // planes b_y, b_x, a_yy, a_xx, a_xy by separable g / x·g / x²·g taps with
 // even/odd folding, scaled by ig11, ig03, ig33, ig55.
 //
 // Bound: it reads the image once (4 bytes a pixel) and writes five float32
-// planes (20 bytes a pixel); its ~9·(2n+1) + 4 flops a pixel (~110 at
-// n = 5) sit below the float32 ridge, so it is bound by the 24 bytes a
-// pixel it must move.  Design: one block per (sample, 16×32 output tile)
-// stages the tile's image slab plus its n+nb halo in shared memory, read
-// through clamped indices, so the edge padding of the TPU driver needs no
-// copy; the blur, the vertical pass (3 sums) and the horizontal pass (6
-// sums) then run out of shared memory, and each output is written once,
-// coalesced along the row.  Every sum runs in the Pallas kernel's order.
+// planes (20 bytes a pixel); its 27n + 12 flops a pixel, plus 8nb + 2 for
+// the fused blur (~160 at n = 5), sit below the float32 ridge, so it is
+// bound by the 24 bytes a pixel it must move.
+// Design: one block per (sample, 16×32 output tile) stages the tile's image
+// slab plus its n+nb halo in shared memory, read through clamped indices,
+// so the edge padding of the TPU version needs no copy; the blur, the
+// vertical pass (3 sums) and the horizontal pass (6 sums) then run out of
+// shared memory, and each output is written once, coalesced along the row.
+// Every sum runs in the Pallas kernel's order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,19 +1,20 @@
 // K3: the first Farnebäck system of a pyramid level.
 //
 // Replaces nsof_tpu/ops/farneback_fast.py::_update_matrices_sep_kernel as
-// driven by _update_matrices_sep_cm (bf16 M out): clamp the flow to ±r,
+// called through _update_matrices_sep_cm (bf16 M out): clamp the flow to ±r,
 // warp r1 in two separable passes (horizontal at each row's own dx, then
 // vertical at the output pixel's dy), build r2…r6, scale by the border
 // table and store the five products in bfloat16.
 //
-// Bound: per output pixel it reads r0 (5 floats), dx, dy and writes 5
-// bf16 — ~38 bytes — and does ~(2r+2)·(2r+3)·5·2 flops in the warp, about
-// 800 at r = 3; at ~20 flops a byte it sits near the card's float32
-// ridge.  Design: one thread per canvas pixel, no shared memory.  The
-// (2r+2)² r1 taps of neighbouring threads overlap, so they come from L1;
-// the flow and border scale are read through clamped indices, which
-// realises the edge-padded canvas without a pad copy.  It runs once per
-// level; K4 carries the iterations.
+// Bound: per output pixel it must read r0 and r1 (20 bytes each), dx, dy
+// and write 5 bf16: ~58 bytes.  With warp pass 1 computed once per row the
+// work is ~260 flops a pixel, below the float32 ridge, so the bytes bound
+// it; this first version recomputes pass 1 for each of the 2r+2 output
+// rows (~1,000 flops a pixel).  Design: one thread per canvas pixel, no
+// shared memory.  The (2r+2)² r1 taps of neighbouring threads overlap, so
+// they come from L1; the flow and border scale are read through clamped
+// indices, which realises the edge-padded canvas without a pad copy.  It
+// runs once per level; K4 carries the iterations.
 
 #include <stdint.h>
 

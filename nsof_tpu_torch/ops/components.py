@@ -18,21 +18,31 @@ reaches.  The work is O(B·(HW)³·log HW), meant for device-state grids
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 _BIG = 2**30  # sentinel label for background / empty slots
 
 
-def _shift(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
-    """out[..., i, j] = x[..., i + dy, j + dx], ``fill`` outside."""
-    h, w = x.shape[-2:]
-    out = torch.full_like(x, fill)
-    ys, yd = slice(max(dy, 0), h + min(dy, 0)), slice(max(-dy, 0), h + min(-dy, 0))
-    xs, xd = slice(max(dx, 0), w + min(dx, 0)), slice(max(-dx, 0), w + min(-dx, 0))
-    out[..., yd, xd] = x[..., ys, xs]
-    return out
+@functools.lru_cache(maxsize=64)
+def _neighbour_pairs(h: int, w: int, connectivity: int, device: str):
+    """Linear indices ``(src, dst)`` of every in-grid neighbour pair of an
+    ``h × w`` grid, built once on the host and kept on ``device``, so that
+    labelling indexes with integers and never syncs on a boolean mask."""
+    shifts = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    if connectivity == 8:
+        shifts += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    y, x = np.indices((h, w)).reshape(2, -1)
+    src, dst = [], []
+    for dy, dx in shifts:
+        ok = (y + dy >= 0) & (y + dy < h) & (x + dx >= 0) & (x + dx < w)
+        src.append((y * w + x)[ok])
+        dst.append(((y + dy) * w + x + dx)[ok])
+    pairs = torch.from_numpy(np.stack([np.concatenate(src), np.concatenate(dst)]))
+    return pairs.to(device)
 
 
 def label_components(mask: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
@@ -48,19 +58,11 @@ def label_components(mask: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
     n = h * w
     flat = act.reshape(b, n)
     # adjacency: pixel p reaches neighbour q when both are active
-    idx = torch.arange(n, device=act.device).reshape(h, w)
+    idx = torch.arange(n, device=act.device)
     adj = torch.zeros(b, n, n, dtype=torch.float32, device=act.device)
-    adj[:, idx.reshape(-1), idx.reshape(-1)] = flat.float()
-    shifts = [(-1, 0), (1, 0), (0, -1), (0, 1)]
-    if connectivity == 8:
-        shifts += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
-    for dy, dx in shifts:
-        nbr = _shift(idx, dy, dx, -1)
-        both = act & _shift(act, dy, dx, False)
-        ok = nbr >= 0
-        src = idx[ok]
-        dst = nbr[ok]
-        adj[:, src, dst] = both[:, ok].float()
+    adj[:, idx, idx] = flat.float()
+    src, dst = _neighbour_pairs(h, w, connectivity, str(act.device))
+    adj[:, src, dst] = (flat[:, src] & flat[:, dst]).float()
     # 0/1 products with sums ≤ n are exact in float32 (and in TF32)
     for _ in range(max(1, math.ceil(math.log2(max(n, 2))))):
         adj = (torch.bmm(adj, adj) > 0).float()

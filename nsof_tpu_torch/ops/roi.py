@@ -173,20 +173,17 @@ def _crop_windows_cuda(frames, oys, oxs, win_h, win_w):
 def crop_windows_batch(
     frames: torch.Tensor, oys: torch.Tensor, oxs: torch.Tensor,
     win_h: int, win_w: int,
-):
+) -> torch.Tensor:
     """Batched static-size crop: ``[B, H, W(, C)]`` frames + per-sample
-    origins → ``(windows [B, win_h, win_w(, C)], oys, oxs)``.
+    origins → windows ``[B, win_h, win_w(, C)]``.
 
     A CUDA tensor goes through kernel K1; a CPU tensor through the plain
     version.  Origins are clamped so the window fits, as dynamic_slice
-    does; the origins are returned as given, like the JAX package's CPU
-    path, so callers scatter with the same values they cropped with.
+    does.
     """
     if frames.is_cuda:
-        wins = _crop_windows_cuda(frames, oys, oxs, win_h, win_w)
-    else:
-        wins = _crop_windows_plain(frames, oys, oxs, win_h, win_w)
-    return wins, oys, oxs
+        return _crop_windows_cuda(frames, oys, oxs, win_h, win_w)
+    return _crop_windows_plain(frames, oys, oxs, win_h, win_w)
 
 
 def window_box_mask(box: torch.Tensor, oys: torch.Tensor, oxs: torch.Tensor,

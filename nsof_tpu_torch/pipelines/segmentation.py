@@ -76,8 +76,8 @@ def seg_batch_fast(
     box = r["merged"]
     active = r["any_active"]
     oys, oxs = roi_ops.window_origin(box, wh, ww, h, w)
-    p_win, _, _ = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
-    n_win, _, _ = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)
+    p_win = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
+    n_win = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)
 
     # the head needs only |flow|², so the Farnebäck sign flip is skipped
     dx, dy = farneback_fast(p_win, n_win, cfg.fb, warp_radius, kernel_mode,

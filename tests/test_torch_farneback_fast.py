@@ -34,7 +34,7 @@ K2_CASES = {
 
 
 def _cm(x):
-    """[B, C, H, W] → the JAX driver's channel-major [C, H, W, B]."""
+    """[B, C, H, W] → the JAX kernels' channel-major [C, H, W, B]."""
     return jnp.asarray(np.ascontiguousarray(np.moveaxis(x, 0, -1)))
 
 

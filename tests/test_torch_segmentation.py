@@ -112,8 +112,7 @@ def test_head_on_jax_flow_bit_exact(runs):
     _, tcfg, _, ref = runs
     box = torch.from_numpy(ref["box"])
     oys, oxs = troi.window_origin(box, WIN, WIN, H, W)
-    flow_win, _, _ = troi.crop_windows_batch(torch.from_numpy(ref["flow"]), oys, oxs,
-                                             WIN, WIN)
+    flow_win = troi.crop_windows_batch(torch.from_numpy(ref["flow"]), oys, oxs, WIN, WIN)
     inbox = troi.window_box_mask(box, oys, oxs, WIN, WIN)
     inbox &= torch.from_numpy(ref["any_active"])[:, None, None]
     mask_win = tseg.seg_head_window_batch(flow_win, inbox, tcfg)
