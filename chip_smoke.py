@@ -2,12 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1–K4) from ``nsof_tpu_torch/csrc``, holds
-each against its plain PyTorch version on the card, drives the main path
-(``seg_batch_fast`` on bench.py's 640×480 workload: 256×384 window, grasp
-preset, memsize 80, warp radius 3) at B = 256, checks that it went through
-every kernel, made no host synchronisation and agrees with the plain
-route, and times it.
+Builds the port's CUDA kernels (K1–K7) from ``nsof_tpu_torch/csrc``, holds
+each, and the float32 forms of K3 and K4, against its plain PyTorch version
+on the card, then drives three paths of ``seg_batch_fast``:
+
+- the main path on bench.py's 640×480 workload (256×384 window, grasp
+  preset, memsize 80, warp radius 3) at B = 256, the fused route (K1–K4);
+- the same at ``kernel_mode='fused_f32'`` (K1, K2, K3/K4 in float32);
+- the autodriving preset (801×801 frames and window, memsize 200, poly_n
+  10, warp radius 3) at B = 128 in ``kernel_mode`` 'auto' (the pallas_sep
+  route: K1, K5, K6) and 'pallas' (K1, K7, K6).
+
+Each path's launch counts are zeroed just before it and read just after;
+it must go through exactly its kernels, make no host synchronisation and
+agree with the plain route, and it is timed.  Last, each kernel is timed at
+its path's level-0 shapes beside its bound and its plain version.
 
 Each phase prints one JSON line.  The line before the last is the card's
 name and power limit as ``nvidia-smi`` reports them, the one before that
@@ -47,15 +56,39 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 EXPECTED_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
                      "update_matrices_sep": 4, "fused_box_update": 12}
+F32_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
+                "update_matrices_sep_f32": 4, "fused_box_update_f32": 12}
+# the autodriving preset: 4 pyramid levels × 3 iterations
+AD_B = 128
+AD_B_CHECK = 4
+AD_LAUNCHES = {
+    "auto": {"crop_windows": 2, "update_matrices_sep_level": 12, "box_solve": 12},
+    "pallas": {"crop_windows": 2, "update_matrices": 12, "box_solve": 12},
+}
+# launch key → (source, TPU kernel it replaces, CUDA kernel name in a trace)
 SOURCES = {
     "crop_windows": ("nsof_tpu_torch/csrc/crop_windows.cu",
-                     "nsof_tpu/ops/roi.py:203"),
+                     "nsof_tpu/ops/roi.py:203", "crop_windows_kernel"),
     "poly_expansion": ("nsof_tpu_torch/csrc/poly_expansion.cu",
-                       "nsof_tpu/ops/farneback_fast.py:600"),
+                       "nsof_tpu/ops/farneback_fast.py:600", "poly_expansion_kernel"),
     "update_matrices_sep": ("nsof_tpu_torch/csrc/update_matrices_sep.cu",
-                            "nsof_tpu/ops/farneback_fast.py:268"),
+                            "nsof_tpu/ops/farneback_fast.py:268",
+                            "update_matrices_sep_kernel"),
+    "update_matrices_sep_f32": ("nsof_tpu_torch/csrc/update_matrices_sep.cu",
+                                "nsof_tpu/ops/farneback_fast.py:268",
+                                "update_matrices_sep_kernel"),
     "fused_box_update": ("nsof_tpu_torch/csrc/fused_box_update.cu",
-                         "nsof_tpu/ops/farneback_fast.py:864"),
+                         "nsof_tpu/ops/farneback_fast.py:864", "fused_box_update_kernel"),
+    "fused_box_update_f32": ("nsof_tpu_torch/csrc/fused_box_update.cu",
+                             "nsof_tpu/ops/farneback_fast.py:864",
+                             "fused_box_update_kernel"),
+    "update_matrices_sep_level": ("nsof_tpu_torch/csrc/update_matrices_sep.cu",
+                                  "nsof_tpu/ops/farneback_fast.py:268",
+                                  "update_matrices_sep_kernel"),
+    "box_solve": ("nsof_tpu_torch/csrc/box_solve.cu",
+                  "nsof_tpu/ops/farneback_fast.py:488", "box_solve_"),
+    "update_matrices": ("nsof_tpu_torch/csrc/update_matrices.cu",
+                        "nsof_tpu/ops/farneback_fast.py:199", "update_matrices_kernel"),
 }
 
 
@@ -121,18 +154,33 @@ def bench_cfg():
     return dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, memsize=MEMSIZE))
 
 
-def bench_inputs(b: int, variant: int, dev):
-    """bench.py's inputs (bench.py:72-92): a random texture moved by
-    (2, -1) px, and a 6×8 state map with an active 2×2 block."""
+def frame_inputs(b: int, variant: int, dev, h: int, w: int, memsize: int,
+                 cells: tuple[slice, slice]):
+    """bench.py's inputs (bench.py:72-92) at h×w: a random texture moved
+    by (2, -1) px, and a state map with the ``cells`` block active."""
     rng = np.random.default_rng(0)
-    base = rng.random((H + 64, W + 64)).astype(np.float32) * 255
+    base = rng.random((h + 64, w + 64)).astype(np.float32) * 255
     v = variant
-    prev = np.broadcast_to(base[16 + v : 16 + v + H, 16 : 16 + W], (b, H, W))
-    nxt = np.broadcast_to(base[18 + v : 18 + v + H, 15 : 15 + W], (b, H, W))
-    mem = np.zeros((b, H // MEMSIZE, W // MEMSIZE), np.uint8)
-    mem[:, 2:4, 3:5] = 255
+    prev = np.broadcast_to(base[16 + v : 16 + v + h, 16 : 16 + w], (b, h, w))
+    nxt = np.broadcast_to(base[18 + v : 18 + v + h, 15 : 15 + w], (b, h, w))
+    mem = np.zeros((b, h // memsize, w // memsize), np.uint8)
+    mem[:, cells[0], cells[1]] = 255
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     return t(mem), t(prev.astype(np.uint8)), t(nxt.astype(np.uint8))
+
+
+def bench_inputs(b: int, variant: int, dev):
+    """The main path's inputs: 640×480, a 6×8 state map with an active 2×2
+    block."""
+    return frame_inputs(b, variant, dev, H, W, MEMSIZE, (slice(2, 4), slice(3, 5)))
+
+
+def ad_inputs(b: int, variant: int, dev):
+    """The autodriving path's inputs: 801×801, a 4×4 state map with an
+    active 2×2 block."""
+    cfg = DATASETS["autodriving"]
+    return frame_inputs(b, variant, dev, cfg.image_h, cfg.image_w, cfg.roi.memsize,
+                        (slice(1, 3), slice(1, 3)))
 
 
 def bf16_check(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -152,21 +200,41 @@ def bf16_check(got: torch.Tensor, ref: torch.Tensor) -> float:
     return (g - r).abs().max().item()
 
 
+def f32_check(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
+    """Kernel vs plain for f32 M: every element within 1e-6 of its
+    channel's largest magnitude (both sum in one order, so 0 is expected).
+    Returns max |Δ|."""
+    chmax = ref.abs().amax(dim=(0, 2, 3), keepdim=True)
+    if not ((got - ref).abs() <= 1e-6 * chmax).all():
+        raise AssertionError(f"{name}: an element is beyond 1e-6 of its channel max")
+    return (got - ref).abs().max().item()
+
+
+def flow_check(got, ref, name: str, tol: float = 1e-5) -> float:
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    if not err <= tol:
+        raise AssertionError(f"{name} flow differs from its plain version by {err} px")
+    return err
+
+
 @contextlib.contextmanager
 def plain_route():
     """Swap every kernel wrapper for its plain version (the reference run
-    of the main path on the card)."""
-    saved = (troi.crop_windows_batch, tff.poly_expansion,
-             tff.update_matrices_sep, tff.fused_box_update)
-    troi.crop_windows_batch = troi._crop_windows_plain
-    tff.poly_expansion = tff._poly_expansion_plain
-    tff.update_matrices_sep = tff._update_matrices_sep_plain
-    tff.fused_box_update = tff._fused_box_update_plain
+    of a path on the card)."""
+    names = {"crop_windows_batch": (troi, "_crop_windows_plain"),
+             "poly_expansion": (tff, "_poly_expansion_plain"),
+             "update_matrices_sep": (tff, "_update_matrices_sep_plain"),
+             "fused_box_update": (tff, "_fused_box_update_plain"),
+             "update_matrices": (tff, "_update_matrices_plain"),
+             "box_solve": (tff, "_box_solve_plain")}
+    saved = {name: getattr(mod, name) for name, (mod, _) in names.items()}
+    for name, (mod, plain) in names.items():
+        setattr(mod, name, getattr(mod, plain))
     try:
         yield
     finally:
-        (troi.crop_windows_batch, tff.poly_expansion,
-         tff.update_matrices_sep, tff.fused_box_update) = saved
+        for name, (mod, _) in names.items():
+            setattr(mod, name, saved[name])
 
 
 def level0_operands(b: int, dev):
@@ -184,20 +252,44 @@ def level0_operands(b: int, dev):
     r1 = tff.poly_expansion(img1, 5, 1.2, hk, wk, blur, margin=tff.R1_MARGIN)
     bsc = tff.border_scale(hk, wk, str(dev))
     m = tff.update_matrices_sep(dx, dy, r0, r1, bsc, RADIUS)
+    m32 = tff.update_matrices_sep(dx, dy, r0, r1, bsc, RADIUS, out_dtype=torch.float32)
     return dict(img0=img0, img1=img1, dx=dx, dy=dy, blur=blur, r0=r0, r1=r1,
-                bsc=bsc, m=m)
+                bsc=bsc, m=m, m32=m32)
 
 
-def where_the_time_goes(cfg, mem, prev, nxt, ms_batch: float) -> dict:
-    """Device time of one main-path call by kernel name (torch.profiler),
-    the kernels K1–K4 against everything else, and the device's idle share
-    of the timed batch."""
+def ad_level0_operands(b: int, dev, pad: int = RADIUS + 1):
+    """Level-0 operands of the autodriving path: 801×801 images blurred as
+    the level route blurs them, their poly_n 10 expansions (r1 edge-padded
+    by ``pad``), a smooth flow reaching past the warp radius, and M."""
+    cfg = DATASETS["autodriving"]
+    h, w, fb = cfg.image_h, cfg.image_w, cfg.fb
+    rng = np.random.default_rng(3)
+    img0 = torch.from_numpy((rng.random((b, h, w)) * 255).astype(np.float32)).to(dev)
+    img1 = torch.roll(img0, (2, -1), dims=(1, 2)).contiguous()
+    blur = _gaussian_blur_kernel(3, 0.0)
+    i0, i1 = (tff._blur_valid(tff._reflect_pad(i, 1), blur) for i in (img0, img1))
+    coarse = torch.from_numpy(rng.normal(size=(b, 2, 26, 26)).astype(np.float32) * 2.0)
+    flow = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear")
+    dx, dy = flow[:, 0].contiguous().to(dev), flow[:, 1].contiguous().to(dev)
+    r0 = tff.poly_expansion_fast(i0, fb.poly_n, fb.poly_sigma)
+    r1p = tff._extend(tff.poly_expansion_fast(i1, fb.poly_n, fb.poly_sigma),
+                      pad, pad, pad, pad)
+    bsc = tff.border_scale(h, w, str(dev))
+    m = tff.update_matrices(dx, dy, r0, r1p, bsc, RADIUS, separable=True)
+    return dict(dx=dx, dy=dy, r0=r0, r1p=r1p, bsc=bsc, m=m, winsize=fb.winsize)
+
+
+def where_the_time_goes(cfg, mem, prev, nxt, ms_batch: float, batch: int,
+                        keys, **kwargs) -> dict:
+    """Device time of one call of a path by kernel name (torch.profiler),
+    the port's kernels on it (launch ``keys``) against everything else, and
+    the device's idle share of the timed batch."""
     from torch.profiler import ProfilerActivity, profile
 
-    seg_batch_fast(mem, prev, nxt, cfg)
+    seg_batch_fast(mem, prev, nxt, cfg, **kwargs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        seg_batch_fast(mem, prev, nxt, cfg)
+        seg_batch_fast(mem, prev, nxt, cfg, **kwargs)
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -205,38 +297,105 @@ def where_the_time_goes(cfg, mem, prev, nxt, ms_batch: float) -> dict:
         return {"phase": "device_trace", "busy_ms": "not measured",
                 "reason": "the profiler recorded no device events"}
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    ours = {k: 0.0 for k in EXPECTED_LAUNCHES}
+    ours = {k: 0.0 for k in keys}
     for e in kern:
         for k in ours:
-            if f"{k}_kernel" in e.key:
+            if SOURCES[k][2] in e.key:
                 ours[k] += e.self_device_time_total / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:15]
     return {
-        "phase": "device_trace", "batch": B_MAIN, "busy_ms": busy,
-        "idle_share_of_timed_batch": 1.0 - busy / ms_batch,
+        "phase": "device_trace", "path": cfg.name, "kwargs": kwargs, "batch": batch,
+        "busy_ms": busy, "idle_share_of_timed_batch": 1.0 - busy / ms_batch,
         "kernels_ms": ours, "other_ms": busy - sum(ours.values()),
         "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                  "count": e.count} for e in top],
     }
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        sys.exit(1)
-    dev = torch.device("cuda", torch.cuda.current_device())
-    name = torch.cuda.get_device_name(0)
-    smi = smi_line()
-    emit({"phase": "device", "name": name, "nvidia_smi": smi,
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+def drive_path(cfg, inputs, batch: int, expected: dict, dev, trace: bool,
+               **kwargs) -> tuple[dict, float]:
+    """One path of ``seg_batch_fast``: its launch counts (zeroed just
+    before the call, read just after) must be ``expected``; its output must
+    agree with the plain route's, keep the mask inside a non-empty ROI, and
+    come with no host synchronisation; then it is timed (median of 10
+    after 3 warm-up calls, three input variants in turn) and, with
+    ``trace``, profiled.  Returns the launch counts and ms per batch."""
+    mem, prev, nxt = inputs(batch, 0, dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = seg_batch_fast(mem, prev, nxt, cfg, return_flow=True, **kwargs)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches != expected:
+        raise AssertionError(f"{cfg.name} {kwargs}: launches {launches} != {expected}")
+    counts = dict(_build.LAUNCHES)
+    with plain_route():
+        ref = seg_batch_fast(mem, prev, nxt, cfg, return_flow=True, **kwargs)
+    torch.cuda.synchronize()
+    if _build.LAUNCHES != counts:
+        raise AssertionError("the plain route launched a kernel")
+    flow_err = (out["flow"] - ref["flow"]).abs()
+    mask_agree = (out["mask"] == ref["mask"]).float().mean().item()
+    if not (torch.isfinite(out["flow"]).all() and flow_err.max().item() <= 1e-3
+            and mask_agree >= 0.995):
+        raise AssertionError(f"{cfg.name} {kwargs} vs plain route: flow "
+                             f"{flow_err.max().item()} px, mask agreement {mask_agree}")
+    for key in ("box", "any_active", "region_pct"):
+        if not torch.equal(out[key], ref[key]):
+            raise AssertionError(f"{key} differs from the plain route")
+    box = out["box"][0].tolist()
+    inside = out["mask"][:, box[1]:box[3], box[0]:box[2]]
+    if not (out["any_active"].all() and (inside > 0).any(dim=(1, 2)).all()):
+        raise AssertionError("the mask is empty inside the ROI")
+    if out["mask"].sum() != inside.sum():
+        raise AssertionError("the mask has pixels outside the ROI")
+    probe = host_syncs(lambda: out["box"].sum().item())
+    if sum(probe.values()) != 1:
+        raise AssertionError(f"the sync counter saw {probe} in one .item()")
+    syncs = host_syncs(lambda: seg_batch_fast(mem, prev, nxt, cfg, return_flow=True,
+                                              **kwargs))
+    emit({"phase": "main_path", "path": cfg.name, "kwargs": kwargs, "batch": batch,
+          "frame": [cfg.image_h, cfg.image_w], "window": list(cfg.win_shape),
+          "launches_per_call": launches, "flow_max_abs_err_px": flow_err.max().item(),
+          "flow_mean_abs_err_px": flow_err.mean().item(), "mask_agreement": mask_agree,
+          "mask_fraction_in_roi": (inside > 0).float().mean().item(), "box": box,
+          "host_syncs_per_call": sum(syncs.values()), "host_sync_sites": syncs})
+    if syncs:
+        raise AssertionError(f"{cfg.name} {kwargs} synchronised with the host: {syncs}")
+    del out, ref, flow_err, inside
 
-    t0 = time.perf_counter()
-    secs = _build.build_all()
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "per_kernel": {k: round(v, 3) for k, v in secs.items()}})
+    variants = [(mem, prev, nxt)] + [inputs(batch, v, dev) for v in (1, 2)]
+    samples = []
+    for i in range(13):
+        m_, p_, n_ = variants[i % 3]
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        seg_batch_fast(m_, p_, n_, cfg, **kwargs)
+        stop.record()
+        torch.cuda.synchronize()
+        if i >= 3:  # warm-up
+            samples.append(start.elapsed_time(stop))
+    ms_batch = float(np.median(samples))
+    emit({"phase": "main_path_time", "path": cfg.name, "kwargs": kwargs, "batch": batch,
+          "ms_per_batch": ms_batch, "fps": batch / ms_batch * 1e3,
+          "samples_ms": samples, "card": smi_line()})
+    if trace:
+        emit(where_the_time_goes(cfg, *variants[0], ms_batch, batch, expected, **kwargs))
+    return launches, ms_batch
 
-    # ── each kernel against its plain version, level-0 shapes, B = 16 ──
+
+def tree_adds(win: int) -> int:
+    """Additions of a log-tree window sum of width ``win`` a position, with
+    every partial sum computed once."""
+    return (win.bit_length() - 1) + (bin(win).count("1") - 1)
+
+
+def check_kernels(dev) -> dict:
+    """Each kernel against its plain version on the card: K1–K4 at the main
+    path's level-0 shapes (B = 16), the float32 forms of K3 and K4 there,
+    K5–K7 at the autodriving path's level-0 shapes (B = 4).  Returns the
+    max |Δ| of each."""
     hk, wk = WIN
     errs = {}
     rng = np.random.default_rng(2)
@@ -270,84 +429,74 @@ def main() -> None:
           "max_abs_err": errs["update_matrices_sep"],
           "tolerance": ">=99% bf16 bit-equal; each element within 1 bf16 ulp "
                        "or 1e-6 of its channel max"})
+    f32 = dict(out_dtype=torch.float32)
+    errs["update_matrices_sep_f32"] = f32_check(
+        tff.update_matrices_sep(*args, **f32),
+        tff._update_matrices_sep_plain(*args, **f32), "K3 f32")
+    emit({"phase": "check", "kernel": "update_matrices_sep_f32",
+          "max_abs_err": errs["update_matrices_sep_f32"],
+          "tolerance": "1e-6 of its channel max"})
 
-    kargs = (ops["m"], ops["r0"], ops["r1"], ops["bsc"], 15, RADIUS)
-    k4m = bf16_check(tff.fused_box_update(*kargs, "matrices"),
-                     tff._fused_box_update_plain(*kargs, "matrices"))
-    k4f = (tff.fused_box_update(*kargs, "flow")
-           - tff._fused_box_update_plain(*kargs, "flow")).abs().max().item()
-    if not k4f <= 1e-3:
-        raise AssertionError(f"K4 flow differs from its plain version by {k4f} px")
-    errs["fused_box_update"] = max(k4m, k4f)
-    emit({"phase": "check", "kernel": "fused_box_update",
-          "max_abs_err_matrices": k4m, "max_abs_err_flow_px": k4f,
-          "tolerance": "matrices as K3; flow 1e-3 px"})
+    for key, m, check in (("fused_box_update", ops["m"], bf16_check),
+                          ("fused_box_update_f32", ops["m32"],
+                           lambda g, r: f32_check(g, r, "K4 f32"))):
+        kargs = (m, ops["r0"], ops["r1"], ops["bsc"], 15, RADIUS)
+        k4m = check(tff.fused_box_update(*kargs, "matrices"),
+                    tff._fused_box_update_plain(*kargs, "matrices"))
+        k4f = (tff.fused_box_update(*kargs, "flow")
+               - tff._fused_box_update_plain(*kargs, "flow")).abs().max().item()
+        if not k4f <= 1e-3:
+            raise AssertionError(f"{key} flow differs from its plain version by {k4f} px")
+        errs[key] = max(k4m, k4f)
+        emit({"phase": "check", "kernel": key, "max_abs_err_matrices": k4m,
+              "max_abs_err_flow_px": k4f,
+              "tolerance": "matrices as K3 (bf16) or 1e-6 of the channel max (f32); "
+                           "flow 1e-3 px"})
     torch.cuda.synchronize()
     del ops
 
-    # ── the main path at full width ──
-    cfg = bench_cfg()
-    mem, prev, nxt = bench_inputs(B_MAIN, 0, dev)
+    # K5–K7 at radius 3 and at radius 8 (beyond the TPU kernels' halo of 8)
+    for radius in (RADIUS, 8):
+        ad = ad_level0_operands(AD_B_CHECK, dev, pad=radius + 1)
+        uargs = (ad["dx"], ad["dy"], ad["r0"], ad["r1p"], ad["bsc"], radius)
+        for key, sep in (("update_matrices_sep_level", True), ("update_matrices", False)):
+            err = f32_check(tff.update_matrices(*uargs, separable=sep),
+                            tff._update_matrices_plain(*uargs, separable=sep), key)
+            errs[key] = max(errs.get(key, 0.0), err)
+            emit({"phase": "check", "kernel": key, "radius": radius, "max_abs_err": err,
+                  "tolerance": "1e-6 of its channel max"})
+        del ad, uargs
+    ad = ad_level0_operands(AD_B_CHECK, dev)
+    for winsize in (ad["winsize"], 15, 21):  # 21: m = 10, beyond the TPU kernel's 8
+        err = flow_check(tff.box_solve(ad["m"], winsize),
+                         tff._box_solve_plain(ad["m"], winsize), "K6")
+        errs["box_solve"] = max(errs.get("box_solve", 0.0), err)
+        emit({"phase": "check", "kernel": "box_solve", "winsize": winsize,
+              "max_abs_err": err, "tolerance": "1e-5 px"})
     torch.cuda.synchronize()
-    _build.reset_launches()
-    out = seg_batch_fast(mem, prev, nxt, cfg, return_flow=True)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"launches {launches} != {EXPECTED_LAUNCHES}")
-    with plain_route():
-        ref = seg_batch_fast(mem, prev, nxt, cfg, return_flow=True)
-    torch.cuda.synchronize()
-    if _build.LAUNCHES != launches:
-        raise AssertionError("the plain route launched a kernel")
-    flow_err = (out["flow"] - ref["flow"]).abs()
-    mask_agree = (out["mask"] == ref["mask"]).float().mean().item()
-    if not (torch.isfinite(out["flow"]).all() and flow_err.max().item() <= 1e-3
-            and mask_agree >= 0.995):
-        raise AssertionError(f"main path vs plain route: flow {flow_err.max().item()} px, "
-                             f"mask agreement {mask_agree}")
-    for key in ("box", "any_active", "region_pct"):
-        if not torch.equal(out[key], ref[key]):
-            raise AssertionError(f"{key} differs from the plain route")
-    box = out["box"][0].tolist()
-    inside = out["mask"][:, box[1]:box[3], box[0]:box[2]]
-    if not (out["any_active"].all() and (inside > 0).any(dim=(1, 2)).all()):
-        raise AssertionError("the mask is empty inside the ROI")
-    if out["mask"].sum() != inside.sum():
-        raise AssertionError("the mask has pixels outside the ROI")
-    probe = host_syncs(lambda: out["box"].sum().item())
-    if sum(probe.values()) != 1:
-        raise AssertionError(f"the sync counter saw {probe} in one .item()")
-    syncs = host_syncs(lambda: seg_batch_fast(mem, prev, nxt, cfg, return_flow=True))
-    emit({"phase": "main_path", "batch": B_MAIN, "frame": [H, W], "window": list(WIN),
-          "launches_per_call": launches, "flow_max_abs_err_px": flow_err.max().item(),
-          "flow_mean_abs_err_px": flow_err.mean().item(), "mask_agreement": mask_agree,
-          "mask_fraction_in_roi": (inside > 0).float().mean().item(), "box": box,
-          "host_syncs_per_call": sum(syncs.values()), "host_sync_sites": syncs})
-    if syncs:
-        raise AssertionError(f"the main path synchronised with the host: {syncs}")
+    return errs
 
-    variants = [bench_inputs(B_MAIN, v, dev) for v in range(3)]
-    samples = []
-    for i in range(13):
-        m_, p_, n_ = variants[i % 3]
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        seg_batch_fast(m_, p_, n_, cfg)
-        stop.record()
-        torch.cuda.synchronize()
-        if i >= 3:  # warm-up
-            samples.append(start.elapsed_time(stop))
-    ms_batch = float(np.median(samples))
-    emit({"phase": "main_path_time", "batch": B_MAIN, "ms_per_batch": ms_batch,
-          "fps": B_MAIN / ms_batch * 1e3, "samples_ms": samples,
-          "card": smi})
-    emit(where_the_time_goes(cfg, *variants[0], ms_batch))
-    del variants, out, ref
 
-    # ── per-kernel times at the main path's level-0 shapes ──
+def kernel_times(launches: dict, errs: dict, dev, prev) -> list[dict]:
+    """Each kernel's time at its path's level-0 shapes, beside its bound,
+    its plain version's time and, where one exists, the time of one PyTorch
+    call computing the same function."""
+    entries = []
+
+    def entry(key, kernel, plain, library, nbytes, flops, batch, **extra):
+        bms, by = bound_ms(nbytes, flops)
+        e = {"name": key, "route": "cuda", "source": SOURCES[key][0],
+             "replaces": SOURCES[key][1], "launches": launches[key],
+             "max_abs_err": errs[key], "ms": time_ms(kernel),
+             "plain_ms": time_ms(plain, iters=5, warm=1), "bound_ms": bms,
+             "bound_by": by, "library_ms": time_ms(library) if library else None}
+        e.update(extra)
+        emit({"phase": "kernel_time", "batch": batch, **e})
+        entries.append(e)
+
+    # ── the main path's level-0 shapes, B = 256 ──
     b = B_MAIN
+    hk, wk = WIN
     ops = level0_operands(b, dev)
     frames = prev
     oy = torch.full((b,), 100, dtype=torch.int32, device=dev)
@@ -369,58 +518,107 @@ def main() -> None:
     # sums (recurrence 2, log tree 6, scale 1 per channel) and the solve (11)
     warp_ops = (2 * RADIUS + 2) * 14 * (1 + 2 * e / hp) + (2 * RADIUS + 2) * 14 + 34
     box_ops = (5 * (2 + 6 + 1) + 11) * (1 + 2 * e / 32)
-    work = {
-        "crop_windows": (2 * b * hk * wk, 0),
-        "poly_expansion": (b * hk * wk * 4 + b * 5 * h1 * w1 * 4,
-                           b * h1 * w1 * (2 * (4 * nb + 1) + 27 * n_ + 12)),
-        "update_matrices_sep": (b * hk * wk * 4 * 2 + hk * wk * 4 + px * 20
-                                + r1_read + px * 10, px * warp_ops),
-        "fused_box_update": (px * 10 + px * 20 + r1_read + hk * wk * 4
-                             + px * 10, px * (box_ops + warp_ops)),
-    }
-    calls = {
-        "crop_windows": (lambda: troi.crop_windows_batch(frames, oy, ox, hk, wk),
-                         lambda: troi._crop_windows_plain(frames, oy, ox, hk, wk),
-                         lambda: dst.copy_(frames[:, 100:100 + hk, 160:160 + wk])),
-        "poly_expansion": (
-            lambda: tff.poly_expansion(ops["img1"], 5, 1.2, hp, wp, ops["blur"], tff.R1_MARGIN),
-            lambda: tff._poly_expansion_plain(ops["img1"], 5, 1.2, hp, wp, ops["blur"],
-                                              tff.R1_MARGIN), None),
-        "update_matrices_sep": (
-            lambda: tff.update_matrices_sep(ops["dx"], ops["dy"], ops["r0"], ops["r1"],
-                                            ops["bsc"], RADIUS),
-            lambda: tff._update_matrices_sep_plain(ops["dx"], ops["dy"], ops["r0"],
-                                                   ops["r1"], ops["bsc"], RADIUS), None),
-        "fused_box_update": (
-            lambda: tff.fused_box_update(ops["m"], ops["r0"], ops["r1"], ops["bsc"], 15,
-                                         RADIUS, "matrices"),
-            lambda: tff._fused_box_update_plain(ops["m"], ops["r0"], ops["r1"], ops["bsc"],
-                                                15, RADIUS, "matrices"), None),
-    }
-    kernels = []
-    for kname, (kernel, plain, library) in calls.items():
-        nbytes, flops = work[kname]
-        bms, by = bound_ms(nbytes, flops)
-        entry = {
-            "name": kname, "route": "cuda", "source": SOURCES[kname][0],
-            "replaces": SOURCES[kname][1], "launches": launches[kname],
-            "max_abs_err": errs[kname], "ms": time_ms(kernel),
-            "plain_ms": time_ms(plain, iters=5, warm=1), "bound_ms": bms,
-            "bound_by": by, "library_ms": time_ms(library) if library else None,
+    sep_args = (ops["dx"], ops["dy"], ops["r0"], ops["r1"], ops["bsc"], RADIUS)
+    entry("crop_windows",
+          lambda: troi.crop_windows_batch(frames, oy, ox, hk, wk),
+          lambda: troi._crop_windows_plain(frames, oy, ox, hk, wk),
+          lambda: dst.copy_(frames[:, 100:100 + hk, 160:160 + wk]),
+          2 * b * hk * wk, 0, b)
+    entry("poly_expansion",
+          lambda: tff.poly_expansion(ops["img1"], 5, 1.2, hp, wp, ops["blur"], tff.R1_MARGIN),
+          lambda: tff._poly_expansion_plain(ops["img1"], 5, 1.2, hp, wp, ops["blur"],
+                                            tff.R1_MARGIN), None,
+          b * hk * wk * 4 + b * 5 * h1 * w1 * 4,
+          b * h1 * w1 * (2 * (4 * nb + 1) + 27 * n_ + 12), b)
+    for key, out_bytes, dtype in (("update_matrices_sep", 10, torch.bfloat16),
+                                  ("update_matrices_sep_f32", 20, torch.float32)):
+        entry(key,
+              lambda: tff.update_matrices_sep(*sep_args, out_dtype=dtype),
+              lambda: tff._update_matrices_sep_plain(*sep_args, out_dtype=dtype), None,
+              b * hk * wk * 4 * 2 + hk * wk * 4 + px * 20 + r1_read + px * out_bytes,
+              px * warp_ops, b)
+    for key, m, m_bytes in (("fused_box_update", ops["m"], 10),
+                            ("fused_box_update_f32", ops["m32"], 20)):
+        kargs = (m, ops["r0"], ops["r1"], ops["bsc"], 15, RADIUS)
+        fb, fby = bound_ms(px * m_bytes + px * 8, px * box_ops)
+        flow_emit = {
+            "ms": time_ms(lambda: tff.fused_box_update(
+                m, None, None, ops["bsc"], 15, RADIUS, "flow")),
+            "plain_ms": time_ms(lambda: tff._fused_box_update_plain(
+                m, None, None, ops["bsc"], 15, RADIUS, "flow"), iters=5, warm=1),
+            "bound_ms": fb, "bound_by": fby,
         }
-        if kname == "fused_box_update":
-            fbytes, fflops = px * 10 + px * 8, px * box_ops
-            fb, fby = bound_ms(fbytes, fflops)
-            entry["flow_emit"] = {
-                "ms": time_ms(lambda: tff.fused_box_update(
-                    ops["m"], None, None, ops["bsc"], 15, RADIUS, "flow")),
-                "plain_ms": time_ms(lambda: tff._fused_box_update_plain(
-                    ops["m"], None, None, ops["bsc"], 15, RADIUS, "flow"), iters=5, warm=1),
-                "bound_ms": fb, "bound_by": fby,
-            }
-        kernels.append(entry)
-        emit({"phase": "kernel_time", "batch": b, **entry})
+        entry(key,
+              lambda: tff.fused_box_update(*kargs, "matrices"),
+              lambda: tff._fused_box_update_plain(*kargs, "matrices"), None,
+              px * m_bytes + px * 20 + r1_read + hk * wk * 4 + px * m_bytes,
+              px * (box_ops + warp_ops), b, flow_emit=flow_emit)
+    del ops
     torch.cuda.synchronize()
+
+    # ── the autodriving path's level-0 shapes, B = 128 ──
+    b = AD_B
+    ad = ad_level0_operands(b, dev)
+    _, _, h, w = ad["r0"].shape
+    px = b * h * w
+    r1_read = b * 5 * (h + 2 * RADIUS + 1) * (w + 2 * RADIUS + 1) * 4
+    upd_bytes = b * h * w * 4 * 2 + h * w * 4 + px * 20 + r1_read + px * 20
+    taps = 2 * RADIUS + 2
+    uargs = (ad["dx"], ad["dy"], ad["r0"], ad["r1p"], ad["bsc"], RADIUS)
+    sep_ops = taps * 14 * (1 + 2 * e / h) + taps * 14 + 34
+    full_ops = taps * taps * 11 + 2 * taps * 4 + 34
+    for key, sep, ops_px in (("update_matrices_sep_level", True, sep_ops),
+                             ("update_matrices", False, full_ops)):
+        entry(key,
+              lambda: tff.update_matrices(*uargs, separable=sep),
+              lambda: tff._update_matrices_plain(*uargs, separable=sep), None,
+              upd_bytes, px * ops_px, b)
+    win = 2 * (ad["winsize"] // 2) + 1
+    entry("box_solve",
+          lambda: tff.box_solve(ad["m"], ad["winsize"]),
+          lambda: tff._box_solve_plain(ad["m"], ad["winsize"]), None,
+          px * 20 + px * 8, px * (5 * (2 * tree_adds(win) + 1) + 11), b)
+    del ad
+    torch.cuda.synchronize()
+    return entries
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        sys.exit(1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    emit({"phase": "device", "name": name, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    secs = _build.build_all()
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "per_kernel": {k: round(v, 3) for k, v in secs.items()}})
+
+    errs = check_kernels(dev)
+
+    # ── the paths at full width ──
+    launches = {}
+    grasp = bench_cfg()
+    got, _ = drive_path(grasp, bench_inputs, B_MAIN, EXPECTED_LAUNCHES, dev, trace=True,
+                        kernel_mode="fused")
+    launches.update(got)
+    got, _ = drive_path(grasp, bench_inputs, B_MAIN, F32_LAUNCHES, dev, trace=False,
+                        kernel_mode="fused_f32")
+    launches.update({k: v for k, v in got.items() if k.endswith("_f32")})
+    ad = DATASETS["autodriving"]
+    for mode, expected in AD_LAUNCHES.items():
+        got, _ = drive_path(ad, ad_inputs, AD_B, expected, dev, trace=True,
+                            kernel_mode=mode)
+        launches.update({k: v for k, v in got.items() if k != "crop_windows"})
+
+    # ── per-kernel times at each path's level-0 shapes ──
+    _, prev, _ = bench_inputs(B_MAIN, 0, dev)
+    kernels = kernel_times(launches, errs, dev, prev)
 
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

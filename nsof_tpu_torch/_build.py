@@ -9,7 +9,9 @@ source, all at once, and waits for them.
 
 The module also keeps the launch counters: each kernel wrapper adds one to
 its entry in :data:`LAUNCHES` where it launches its kernel, and nowhere
-else, so a caller can show which kernels a run went through.
+else, so a caller can show which kernels a run went through.  A source may
+hold several launchers (the float32 forms beside the bfloat16 ones), each
+with its own counter.
 """
 
 from __future__ import annotations
@@ -32,12 +34,25 @@ NVCC_FLAGS = (
     "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# the sources, csrc/<name>.cu, one library each
 KERNELS = (
     "crop_windows", "poly_expansion", "update_matrices_sep",
-    "fused_box_update",
+    "fused_box_update", "update_matrices", "box_solve",
+)
+# one counter per kernel wrapper
+LAUNCH_KEYS = (
+    "crop_windows",                # K1
+    "poly_expansion",              # K2
+    "update_matrices_sep",         # K3, bf16 M
+    "update_matrices_sep_f32",     # K3, f32 M (kernel_mode='fused_f32')
+    "fused_box_update",            # K4, bf16 M
+    "fused_box_update_f32",        # K4, f32 M (kernel_mode='fused_f32')
+    "update_matrices_sep_level",   # K5, the pallas_sep route's update
+    "box_solve",                   # K6
+    "update_matrices",             # K7, the pallas route's update
 )
 
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = {name: 0 for name in LAUNCH_KEYS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, object] = {}
@@ -143,16 +158,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launcher(name: str, n_ptr: int, n_int: int):
-    """The ctypes launcher ``nsof_<name>`` of kernel ``name``: ``n_ptr``
-    pointers, ``n_int`` ints, then the stream; it returns cudaError_t."""
-    fn = _fns.get(name)
+def launcher(name: str, n_ptr: int, n_int: int, symbol: str | None = None):
+    """The ctypes launcher ``symbol`` (default ``nsof_<name>``) in the
+    library of source ``name``: ``n_ptr`` pointers, ``n_int`` ints, then
+    the stream; it returns cudaError_t."""
+    symbol = symbol or f"nsof_{name}"
+    fn = _fns.get(symbol)
     if fn is None:
-        fn = getattr(load(name), f"nsof_{name}")
+        fn = getattr(load(name), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[symbol] = fn
     return fn
 
 

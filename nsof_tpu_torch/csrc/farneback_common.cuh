@@ -1,8 +1,11 @@
-// Device code shared by K3 (update_matrices_sep.cu) and K4
-// (fused_box_update.cu): the two-pass separable warp of r1 and the build of
-// the five-channel system, in the operation order of the plain PyTorch
-// version (nsof_tpu_torch/ops/farneback_fast.py::_warp_build).  Compiled
-// with --fmad=false, every product and sum rounds once, as there.
+// Device code shared by the Farnebäck kernels: K3/K5
+// (update_matrices_sep.cu), K4 (fused_box_update.cu) and K7
+// (update_matrices.cu).  The two-pass separable warp of r1 and the build of
+// the five-channel system follow the operation order of the plain PyTorch
+// versions (nsof_tpu_torch/ops/farneback_fast.py::_warp_build and
+// ::_build_system).  Compiled with --fmad=false, every product and sum
+// rounds once, as there.  M is stored in bfloat16 or float32: load() and
+// store() convert.
 
 #pragma once
 
@@ -19,17 +22,56 @@ __device__ __forceinline__ float hat(float d, int k) {
   return fmaxf(0.0f, 1.0f - fabsf(d - (float)k));
 }
 
-// Warp r1 at canvas pixel (y, x) and write M'(y, x) in bfloat16.
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float load(const float* p) { return *p; }
+
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+
+// The system at one pixel from the warped r1 (acc), r0, the clamped flow
+// and the border scale sc: write the five products to out (plane stride
+// `plane`, pixel `pix`).
+template <typename OutT>
+__device__ __forceinline__ void build_store(
+    const float* acc, const float* __restrict__ r0, long long plane,
+    long long pix, float dx, float dy, float sc, OutT* __restrict__ out) {
+  float r0c[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) r0c[c] = __ldg(r0 + c * plane + pix);
+  float r4 = (r0c[2] + acc[2]) * 0.5f;
+  float r5 = (r0c[3] + acc[3]) * 0.5f;
+  float r6 = (r0c[4] + acc[4]) * 0.25f;
+  const float b_y = (r0c[0] - acc[0]) * 0.5f;
+  const float b_x = (r0c[1] - acc[1]) * 0.5f;
+  float r2 = b_y + r4 * dy + r6 * dx;
+  float r3 = b_x + r6 * dy + r5 * dx;
+  r2 *= sc;
+  r3 *= sc;
+  r4 *= sc;
+  r5 *= sc;
+  r6 *= sc;
+  store(out + 0 * plane + pix, r4 * r4 + r6 * r6);
+  store(out + 1 * plane + pix, (r4 + r5) * r6);
+  store(out + 2 * plane + pix, r5 * r5 + r6 * r6);
+  store(out + 3 * plane + pix, r4 * r2 + r6 * r3);
+  store(out + 4 * plane + pix, r6 * r2 + r5 * r3);
+}
+
+// Warp r1 at canvas pixel (y, x) in two separable passes and write M'(y, x).
 //   dx_row(ky): clamped dx of row y + ky (pass 1 interpolates each row at
 //               its own dx); dx, dy: clamped flow at (y, x);
 //   r1: this sample's [5, h1, w1] planes, canvas (0, 0) at (mr, mc);
 //   r0: this sample's [5, hp, wp] planes; sc: border scale at (y, x).
-template <typename DxRow>
+template <typename DxRow, typename OutT>
 __device__ __forceinline__ void warp_build_store(
     DxRow dx_row, float dx, float dy, const float* __restrict__ r1, int h1,
     int w1, int mr, int mc, const float* __restrict__ r0, long long plane,
     long long pix, float sc, int y, int x, int radius,
-    __nv_bfloat16* __restrict__ out) {
+    OutT* __restrict__ out) {
   const long long plane1 = (long long)h1 * w1;
   float acc[5];
   for (int ky = -radius; ky <= radius + 1; ++ky) {
@@ -51,26 +93,7 @@ __device__ __forceinline__ void warp_build_store(
       acc[c] = (ky == -radius) ? v : acc[c] + v;
     }
   }
-  float r0c[5];
-#pragma unroll
-  for (int c = 0; c < 5; ++c) r0c[c] = __ldg(r0 + c * plane + pix);
-  float r4 = (r0c[2] + acc[2]) * 0.5f;
-  float r5 = (r0c[3] + acc[3]) * 0.5f;
-  float r6 = (r0c[4] + acc[4]) * 0.25f;
-  const float b_y = (r0c[0] - acc[0]) * 0.5f;
-  const float b_x = (r0c[1] - acc[1]) * 0.5f;
-  float r2 = b_y + r4 * dy + r6 * dx;
-  float r3 = b_x + r6 * dy + r5 * dx;
-  r2 *= sc;
-  r3 *= sc;
-  r4 *= sc;
-  r5 *= sc;
-  r6 *= sc;
-  out[0 * plane + pix] = __float2bfloat16(r4 * r4 + r6 * r6);
-  out[1 * plane + pix] = __float2bfloat16((r4 + r5) * r6);
-  out[2 * plane + pix] = __float2bfloat16(r5 * r5 + r6 * r6);
-  out[3 * plane + pix] = __float2bfloat16(r4 * r2 + r6 * r3);
-  out[4 * plane + pix] = __float2bfloat16(r6 * r2 + r5 * r3);
+  build_store(acc, r0, plane, pix, dx, dy, sc, out);
 }
 
 }  // namespace nsof

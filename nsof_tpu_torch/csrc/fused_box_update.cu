@@ -1,15 +1,15 @@
 // K4: one Farnebäck iteration, fused: box sum → 2×2 solve → warp → M'.
 //
 // Replaces nsof_tpu/ops/farneback_fast.py::_fused_box_update_kernel
-// (called through _fused_box_update_cm): box-sum the bfloat16 system M over
-// (2m+1)² in float32, solve the 2×2 system (+1e-3 on the determinant) on
-// the tile's rows and, for emit = matrices, on its ±(r+1) halo rows too;
-// then warp r1 by that flow and write M' in bfloat16 (emit = matrices) or
-// write the float32 flow (emit = flow).  The intermediate flow never
-// leaves shared memory.
+// (called through _fused_box_update_cm): box-sum the system M (bfloat16,
+// or float32 for kernel_mode='fused_f32') over (2m+1)² in float32, solve
+// the 2×2 system (+1e-3 on the determinant) on the tile's rows and, for
+// emit = matrices, on its ±(r+1) halo rows too; then warp r1 by that flow
+// and write M' in M's type (emit = matrices) or write the float32 flow
+// (emit = flow).  The intermediate flow never leaves shared memory.
 //
-// Bound: per canvas pixel it must read M (10 bytes), r0 (20), r1 (20 and
-// its margin) and write M' (10): ~64 bytes.  With every intermediate
+// Bound: per canvas pixel it must read M (10 bytes in bf16), r0 (20), r1
+// (20 and its margin) and write M' (10): ~64 bytes (~84 with f32 M).  With every intermediate
 // computed once (warp pass 1 once per row) the work is ~330 flops a pixel,
 // below the float32 ridge, so the bytes bound it.  This first version does
 // ~1,000 flops a pixel: it recomputes pass 1 for each output row.
@@ -53,8 +53,9 @@ __device__ float tree_sum(const float* v, int win) {
   return out;
 }
 
+template <typename MT>
 __global__ void fused_box_update_kernel(
-    const __nv_bfloat16* __restrict__ m, const float* __restrict__ r0,
+    const MT* __restrict__ m, const float* __restrict__ r0,
     const float* __restrict__ r1, const float* __restrict__ bsc,
     void* __restrict__ out, int hk, int wk, int hp, int wp, int mr, int mc,
     int winsize, int radius, int emit_flow) {
@@ -77,14 +78,14 @@ __global__ void fused_box_update_kernel(
   float* fdy = fdx + rows * kTX;         // kBlk × kTX (clamped dy)
 
   // column sums: slab row 0 is canvas row Y0 - ext - mm, col 0 is X0 - mm
-  const __nv_bfloat16* mb = m + (long long)b * 5 * plane;
+  const MT* mb = m + (long long)b * 5 * plane;
   for (int t = threadIdx.x; t < 5 * vc; t += kThreads) {
     const int c = t / vc, j = t % vc;
     const int x = min(max(X0 - mm + j, 0), wp - 1);
-    const __nv_bfloat16* col = mb + c * plane + x;
+    const MT* col = mb + c * plane + x;
     auto at = [&](int r) {
       const int y = min(max(Y0 - ext - mm + r, 0), hp - 1);
-      return __bfloat162float(col[(long long)y * wp]);
+      return nsof::load(col + (long long)y * wp);
     };
     float s = at(0);
     for (int u = 1; u < win; ++u) s = s + at(u);
@@ -138,16 +139,14 @@ __global__ void fused_box_update_kernel(
         dx_row, fdx[(j + e) * kTX + xi], fdy[j * kTX + xi],
         r1 + (long long)b * 5 * h1p * w1p, h1p, w1p, mr, mc,
         r0 + (long long)b * 5 * plane, plane, (long long)y * wp + x, sc, y, x,
-        radius, (__nv_bfloat16*)out + (long long)b * 5 * plane);
+        radius, (MT*)out + (long long)b * 5 * plane);
   }
 }
 
-}  // namespace
-
-extern "C" int nsof_fused_box_update(
-    const void* m, const void* r0, const void* r1, const void* bsc, void* out,
-    int b, int hk, int wk, int hp, int wp, int mr, int mc, int winsize,
-    int radius, int emit_flow, void* stream) {
+template <typename MT>
+int launch(const void* m, const void* r0, const void* r1, const void* bsc,
+           void* out, int b, int hk, int wk, int hp, int wp, int mr, int mc,
+           int winsize, int radius, int emit_flow, void* stream) {
   if (b == 0) return 0;
   if (hp % kBlk != 0 || winsize / 2 > (1 << (kMaxTreeBit + 1)) / 2 - 1)
     return (int)cudaErrorInvalidValue;
@@ -157,13 +156,30 @@ extern "C" int nsof_fused_box_update(
   const size_t bytes =
       sizeof(float) * ((size_t)5 * rows * vc + (size_t)rows * kTX + kBlk * kTX);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_box_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_box_update_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((wp + kTX - 1) / kTX, hp / kBlk, b);
-  fused_box_update_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)m, (const float*)r0, (const float*)r1,
-      (const float*)bsc, out, hk, wk, hp, wp, mr, mc, winsize, radius,
-      emit_flow);
+  fused_box_update_kernel<MT><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      (const MT*)m, (const float*)r0, (const float*)r1, (const float*)bsc, out,
+      hk, wk, hp, wp, mr, mc, winsize, radius, emit_flow);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int nsof_fused_box_update(
+    const void* m, const void* r0, const void* r1, const void* bsc, void* out,
+    int b, int hk, int wk, int hp, int wp, int mr, int mc, int winsize,
+    int radius, int emit_flow, void* stream) {
+  return launch<__nv_bfloat16>(m, r0, r1, bsc, out, b, hk, wk, hp, wp, mr, mc,
+                               winsize, radius, emit_flow, stream);
+}
+
+extern "C" int nsof_fused_box_update_f32(
+    const void* m, const void* r0, const void* r1, const void* bsc, void* out,
+    int b, int hk, int wk, int hp, int wp, int mr, int mc, int winsize,
+    int radius, int emit_flow, void* stream) {
+  return launch<float>(m, r0, r1, bsc, out, b, hk, wk, hp, wp, mr, mc, winsize,
+                       radius, emit_flow, stream);
 }

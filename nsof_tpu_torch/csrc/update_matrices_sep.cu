@@ -1,20 +1,24 @@
-// K3: the first Farnebäck system of a pyramid level.
+// K3 and K5: a Farnebäck system from the separable warp.
 //
-// Replaces nsof_tpu/ops/farneback_fast.py::_update_matrices_sep_kernel as
-// called through _update_matrices_sep_cm (bf16 M out): clamp the flow to ±r,
-// warp r1 in two separable passes (horizontal at each row's own dx, then
-// vertical at the output pixel's dy), build r2…r6, scale by the border
-// table and store the five products in bfloat16.
+// Replaces nsof_tpu/ops/farneback_fast.py::_update_matrices_sep_kernel in
+// both of its drivers: _update_matrices_sep_cm, the first system of a
+// level on the fused route (K3; M out in bfloat16, or float32 for
+// kernel_mode='fused_f32'), and update_matrices_pallas(separable=True), the
+// update of the pallas_sep route (K5; float32, on the level's own extent
+// with r1 edge-padded by radius + 1).  Clamp the flow to ±r, warp r1 in two
+// separable passes (horizontal at each row's own dx, then vertical at the
+// output pixel's dy), build r2…r6, scale by the border table and store the
+// five products.
 //
 // Bound: per output pixel it must read r0 and r1 (20 bytes each), dx, dy
-// and write 5 bf16: ~58 bytes.  With warp pass 1 computed once per row the
-// work is ~260 flops a pixel, below the float32 ridge, so the bytes bound
-// it; this first version recomputes pass 1 for each of the 2r+2 output
-// rows (~1,000 flops a pixel).  Design: one thread per canvas pixel, no
-// shared memory.  The (2r+2)² r1 taps of neighbouring threads overlap, so
-// they come from L1; the flow and border scale are read through clamped
-// indices, which realises the edge-padded canvas without a pad copy.  It
-// runs once per level; K4 carries the iterations.
+// and write 5 products (10 bytes in bf16, 20 in f32): ~58-68 bytes.  With
+// warp pass 1 computed once per row the work is ~260 flops a pixel, below
+// the float32 ridge, so the bytes bound it; this first version recomputes
+// pass 1 for each of the 2r+2 output rows (~1,000 flops a pixel).  Design:
+// one thread per canvas pixel, no shared memory.  The (2r+2)² r1 taps of
+// neighbouring threads overlap, so they come from L1; the flow and border
+// scale are read through clamped indices, which realises the edge-padded
+// canvas without a pad copy.
 
 #include <stdint.h>
 
@@ -22,11 +26,12 @@
 
 namespace {
 
+template <typename OutT>
 __global__ void update_matrices_sep_kernel(
     const float* __restrict__ dx, const float* __restrict__ dy,
     const float* __restrict__ r0, const float* __restrict__ r1,
-    const float* __restrict__ bsc, __nv_bfloat16* __restrict__ out, int hk,
-    int wk, int hp, int wp, int mr, int mc, int radius) {
+    const float* __restrict__ bsc, OutT* __restrict__ out, int hk, int wk,
+    int hp, int wp, int mr, int mc, int radius) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int b = blockIdx.z;
@@ -53,17 +58,33 @@ __global__ void update_matrices_sep_kernel(
       out + (long long)b * 5 * plane);
 }
 
+template <typename OutT>
+int launch(const void* dx, const void* dy, const void* r0, const void* r1,
+           const void* bsc, void* out, int b, int hk, int wk, int hp, int wp,
+           int mr, int mc, int radius, void* stream) {
+  if (b == 0) return 0;
+  dim3 block(32, 8);
+  dim3 grid((wp + 31) / 32, (hp + 7) / 8, b);
+  update_matrices_sep_kernel<OutT><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const float*)dx, (const float*)dy, (const float*)r0, (const float*)r1,
+      (const float*)bsc, (OutT*)out, hk, wk, hp, wp, mr, mc, radius);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int nsof_update_matrices_sep(
     const void* dx, const void* dy, const void* r0, const void* r1,
     const void* bsc, void* out, int b, int hk, int wk, int hp, int wp, int mr,
     int mc, int radius, void* stream) {
-  if (b == 0) return 0;
-  dim3 block(32, 8);
-  dim3 grid((wp + 31) / 32, (hp + 7) / 8, b);
-  update_matrices_sep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)dx, (const float*)dy, (const float*)r0, (const float*)r1,
-      (const float*)bsc, (__nv_bfloat16*)out, hk, wk, hp, wp, mr, mc, radius);
-  return (int)cudaGetLastError();
+  return launch<__nv_bfloat16>(dx, dy, r0, r1, bsc, out, b, hk, wk, hp, wp,
+                               mr, mc, radius, stream);
+}
+
+extern "C" int nsof_update_matrices_sep_f32(
+    const void* dx, const void* dy, const void* r0, const void* r1,
+    const void* bsc, void* out, int b, int hk, int wk, int hp, int wp, int mr,
+    int mc, int radius, void* stream) {
+  return launch<float>(dx, dy, r0, r1, bsc, out, b, hk, wk, hp, wp, mr, mc,
+                       radius, stream);
 }

@@ -1,26 +1,41 @@
-"""Batched fast Farnebäck flow: the fused route, in PyTorch and CUDA.
+"""Batched fast Farnebäck flow, every route, in PyTorch and CUDA.
 
-Counterpart of :mod:`nsof_tpu.ops.farneback_fast`'s ``kernel_mode='fused'``
-route (``_farneback_fast_fused``).  Per pyramid level it runs
+Counterpart of :mod:`nsof_tpu.ops.farneback_fast`.  :func:`farneback_fast`
+accepts every ``kernel_mode`` of the JAX package.
+
+The fused route (``'fused'``, ``'fused_f32'``; ``_farneback_fast_fused``)
+runs per pyramid level
 
 - K2 :func:`poly_expansion` twice (prev and next), the five coefficient
   planes (b_y, b_x, a_yy, a_xx, a_xy); at level 0 with the 3-tap Gaussian
   pre-blur fused in;
 - K3 :func:`update_matrices_sep` once, the level's first system M: warp the
   next frame's expansion r1 by the upscaled flow in two separable passes
-  and build the five products, stored in bfloat16;
+  and build the five products, stored in bfloat16 (float32 for
+  ``'fused_f32'``);
 - K4 :func:`fused_box_update` ``iterations`` times: box-sum M, solve the
   2×2 system for the flow, and either rebuild M from it
   (``emit='matrices'``) or write the flow (``emit='flow'``, last one).
+
+The level route (``'pallas_sep'``, ``'pallas'``, ``'xla'``;
+``_farneback_fast_levels``) blurs the original frames for every level,
+expands them in plain torch (:func:`poly_expansion_fast`) and iterates a
+float32 system M on the level's own extent:
+
+- :func:`update_matrices` builds M: K5, the separable warp
+  (``'pallas_sep'``), or K7, the (2r+2)²-tap warp (``'pallas'``); the
+  ``'xla'`` route runs K7's plain version;
+- :func:`box_solve` (K6) box-sums M and solves it for the flow; the
+  ``'xla'`` route sums with :func:`_box_solve_dw` instead.
 
 Layouts: frames ``[B, H, W]``, planes ``[B, 5, H, W]`` with W contiguous,
 any B.  The JAX package's batch-in-lanes ``[H, W, B]`` layout and its
 ``B % 128 == 0`` gate are TPU constraints and are not carried over.
 
-The logical canvas.  As in the JAX route, each level computes on a canvas
-of ``hp = ceil(hk/32)·32`` by ``wp = ceil(wk/32)·32`` pixels, and pixels of
-the valid ``hk × wk`` region near its bottom and right edges read what
-fills the slack:
+The fused route's logical canvas.  As in the JAX route, each level
+computes on a canvas of ``hp = ceil(hk/32)·32`` by ``wp = ceil(wk/32)·32``
+pixels, and pixels of the valid ``hk × wk`` region near its bottom and
+right edges read what fills the slack:
 
 - r0 and r1 are expansions of the *edge-extended* image (not
   edge-extended expansions); r1 carries a margin ring ``margin=(8, 16)``
@@ -211,9 +226,28 @@ def poly_expansion(img, n, sigma, hp, wp, blur=None, margin=(0, 0)):
 # ── K3 / K4 shared: separable warp + system build ─────────────────────────
 
 
-def _warp_build(r0, r1, dxh, dx, dy, bsc, radius, margin):
+def _build_system(r0, acc, dx, dy, bsc, out_dtype):
+    """The five products of the system from r0, the warped r1 ``acc``, the
+    clamped flow and the border scale, stored in ``out_dtype``."""
+    r4 = (r0[:, 2] + acc[:, 2]) * 0.5
+    r5 = (r0[:, 3] + acc[:, 3]) * 0.5
+    r6 = (r0[:, 4] + acc[:, 4]) * 0.25
+    b_y = (r0[:, 0] - acc[:, 0]) * 0.5
+    b_x = (r0[:, 1] - acc[:, 1]) * 0.5
+    r2 = b_y + r4 * dy + r6 * dx
+    r3 = b_x + r6 * dy + r5 * dx
+    r2, r3, r4, r5, r6 = (v * bsc for v in (r2, r3, r4, r5, r6))
+    return torch.stack(
+        [r4 * r4 + r6 * r6, (r4 + r5) * r6, r5 * r5 + r6 * r6,
+         r4 * r2 + r6 * r3, r6 * r2 + r5 * r3],
+        dim=1,
+    ).to(out_dtype)
+
+
+def _warp_build(r0, r1, dxh, dx, dy, bsc, radius, margin,
+                out_dtype=torch.bfloat16):
     """Two-pass separable warp of r1 and the five products of the system,
-    stored in bfloat16 (the tail shared by K3 and K4).
+    stored in ``out_dtype`` (the tail shared by K3, K4 and K5).
 
     ``dxh`` is the clamped dx on rows [-(r+1), hp+r+1) (pass 1 interpolates
     each row at its own dx), ``dx``/``dy`` the clamped flow and ``bsc`` the
@@ -230,19 +264,7 @@ def _warp_build(r0, r1, dxh, dx, dy, bsc, radius, margin):
     for ky in range(-r, r + 2):
         tap = t[:, :, e + ky : e + ky + hp] * _hat(dy, ky)[:, None]
         acc = tap if acc is None else acc + tap
-    r4 = (r0[:, 2] + acc[:, 2]) * 0.5
-    r5 = (r0[:, 3] + acc[:, 3]) * 0.5
-    r6 = (r0[:, 4] + acc[:, 4]) * 0.25
-    b_y = (r0[:, 0] - acc[:, 0]) * 0.5
-    b_x = (r0[:, 1] - acc[:, 1]) * 0.5
-    r2 = b_y + r4 * dy + r6 * dx
-    r3 = b_x + r6 * dy + r5 * dx
-    r2, r3, r4, r5, r6 = (v * bsc for v in (r2, r3, r4, r5, r6))
-    return torch.stack(
-        [r4 * r4 + r6 * r6, (r4 + r5) * r6, r5 * r5 + r6 * r6,
-         r4 * r2 + r6 * r3, r6 * r2 + r5 * r3],
-        dim=1,
-    ).to(torch.bfloat16)
+    return _build_system(r0, acc, dx, dy, bsc, out_dtype)
 
 
 def _check_warp_operands(r0, r1, bsc, radius, margin):
@@ -259,71 +281,95 @@ def _check_warp_operands(r0, r1, bsc, radius, margin):
 
 # ── K3: the first system of a level ───────────────────────────────────────
 
+M_DTYPES = (torch.bfloat16, torch.float32)
 
-def _update_matrices_sep_plain(dx, dy, r0, r1, bsc, radius, margin=R1_MARGIN):
-    """Plain version of K3 on the whole canvas."""
+
+def _update_matrices_sep_plain(dx, dy, r0, r1, bsc, radius, margin=R1_MARGIN,
+                               out_dtype=torch.bfloat16):
+    """Plain version of K3 (and K5) on the whole canvas."""
     _, _, hp, wp = r0.shape
     hk, wk = bsc.shape
     e = radius + 1
     dxh = _extend(dx, e, hp - hk + e, 0, wp - wk).clamp(-radius, radius)
     dyc = _extend(dy, 0, hp - hk, 0, wp - wk).clamp(-radius, radius)
     bscp = _extend(bsc, 0, hp - hk, 0, wp - wk)
-    return _warp_build(r0, r1, dxh, dxh[:, e : e + hp], dyc, bscp, radius, margin)
+    return _warp_build(r0, r1, dxh, dxh[:, e : e + hp], dyc, bscp, radius,
+                       margin, out_dtype)
 
 
-def _update_matrices_sep_cuda(dx, dy, r0, r1, bsc, radius, margin):
+def _update_matrices_sep_cuda(dx, dy, r0, r1, bsc, radius, margin, out_dtype,
+                              key):
     b, _, hp, wp = r0.shape
     hk, wk = bsc.shape
     _check_warp_operands(r0, r1, bsc, radius, margin)
     _check(dx, "dx", torch.float32, (b, hk, wk), r0.device)
     _check(dy, "dy", torch.float32, (b, hk, wk), r0.device)
-    out = torch.empty((b, 5, hp, wp), dtype=torch.bfloat16, device=r0.device)
-    fn = _build.launcher("update_matrices_sep", 6, 8)
+    out = torch.empty((b, 5, hp, wp), dtype=out_dtype, device=r0.device)
+    symbol = ("nsof_update_matrices_sep" if out_dtype == torch.bfloat16
+              else "nsof_update_matrices_sep_f32")
+    fn = _build.launcher("update_matrices_sep", 6, 8, symbol)
     _build.check(fn(
         dx.data_ptr(), dy.data_ptr(), r0.data_ptr(), r1.data_ptr(),
         bsc.data_ptr(), out.data_ptr(),
         b, hk, wk, hp, wp, margin[0], margin[1], radius, _stream(r0),
-    ), "update_matrices_sep")
-    _build.LAUNCHES["update_matrices_sep"] += 1
+    ), key)
+    _build.LAUNCHES[key] += 1
     return out
 
 
-def update_matrices_sep(dx, dy, r0, r1, bsc, radius, margin=R1_MARGIN):
-    """K3: the level's first system M ``[B, 5, hp, wp]`` bfloat16.
+def update_matrices_sep(dx, dy, r0, r1, bsc, radius, margin=R1_MARGIN,
+                        out_dtype=torch.bfloat16):
+    """K3: the level's first system M ``[B, 5, hp, wp]`` in ``out_dtype``
+    (bfloat16, or float32 for ``kernel_mode='fused_f32'``).
 
     ``dx``/``dy`` ``[B, hk, wk]`` the (unclamped) flow on the valid region,
     ``r0`` ``[B, 5, hp, wp]``, ``r1`` with its margin ring, ``bsc``
-    ``[hk, wk]``.  Counterpart of ``_update_matrices_sep_cm`` with
-    ``out_dtype=bfloat16``; the warp is the TPU kernel's two-pass one
-    (pass 1 horizontal at each row's own dx, pass 2 vertical at the output
-    pixel's dy), not a true 2-D bilinear warp.
+    ``[hk, wk]``.  Counterpart of ``_update_matrices_sep_cm``; the warp is
+    the TPU kernel's two-pass one (pass 1 horizontal at each row's own dx,
+    pass 2 vertical at the output pixel's dy), not a true 2-D bilinear warp.
     """
+    if out_dtype not in M_DTYPES:
+        raise ValueError(f"out_dtype must be one of {M_DTYPES}, got {out_dtype}")
     if r0.is_cuda:
-        return _update_matrices_sep_cuda(dx, dy, r0, r1, bsc, radius, margin)
-    return _update_matrices_sep_plain(dx, dy, r0, r1, bsc, radius, margin)
+        key = ("update_matrices_sep" if out_dtype == torch.bfloat16
+               else "update_matrices_sep_f32")
+        return _update_matrices_sep_cuda(dx, dy, r0, r1, bsc, radius, margin,
+                                         out_dtype, key)
+    return _update_matrices_sep_plain(dx, dy, r0, r1, bsc, radius, margin,
+                                      out_dtype)
 
 
 # ── K4: one fused Farnebäck iteration ─────────────────────────────────────
 
 
-def _win_sum_tree(a: torch.Tensor, n_out: int, win: int) -> torch.Tensor:
-    """out[..., i] = Σ_{t<win} a[..., i+t] along the last dim, summed in
-    the log-tree order of the TPU kernel's ``_win_sum_tree``."""
+def _win_sum_tree(a: torch.Tensor, n_out: int, win: int,
+                  dim: int = -1) -> torch.Tensor:
+    """out[i] = Σ_{t<win} a[i+t] along ``dim``, summed in the log-tree
+    order of the TPU kernels' window sums (``_win_sum_tree``, and
+    ``win_sum`` in ``_box_solve_kernel``)."""
     levels = [a]
     step = 1
     while step * 2 <= win:
         prev = levels[-1]
-        ext = prev.shape[-1] - step
-        levels.append(prev[..., :ext] + prev[..., step : step + ext])
+        ext = prev.shape[dim] - step
+        levels.append(prev.narrow(dim, 0, ext) + prev.narrow(dim, step, ext))
         step *= 2
     out = None
     pos = 0
     for kbit in range(len(levels) - 1, -1, -1):
         if win & (1 << kbit):
-            part = levels[kbit][..., pos : pos + n_out]
+            part = levels[kbit].narrow(dim, pos, n_out)
             out = part if out is None else out + part
             pos += 1 << kbit
     return out
+
+
+def _solve(g: torch.Tensor):
+    """The 2×2 solve of the box-summed system ``g`` ``[..., 5, H, W]``
+    (channel dim 1), +1e-3 on the determinant → (dx, dy)."""
+    g11, g12, g22, h1, h2 = g.unbind(1)
+    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
+    return (g11 * h2 - g12 * h1) * idet, (g22 * h1 - g12 * h2) * idet
 
 
 def _blocks(x: torch.Tensor, rows: int, top: int, n_blk: int) -> torch.Tensor:
@@ -366,10 +412,7 @@ def _fused_box_update_plain(m, r0, r1, bsc, winsize, radius, emit,
         vs.append(s)
     v = torch.stack(vs, dim=2)
     g = _win_sum_tree(v, wp, win) * (1.0 / (winsize * winsize))
-    g11, g12, g22, h1, h2 = g.unbind(1)
-    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
-    fdx = (g11 * h2 - g12 * h1) * idet  # [B·n, rows, wp]
-    fdy = (g22 * h1 - g12 * h2) * idet
+    fdx, fdy = _solve(g)  # [B·n, rows, wp]
     if emit == "flow":
         fl = torch.stack([fdx, fdy], dim=1).reshape(b, n_blk, 2, CANVAS, wp)
         return fl.transpose(1, 2).reshape(b, 2, hp, wp)
@@ -383,7 +426,7 @@ def _fused_box_update_plain(m, r0, r1, bsc, winsize, radius, emit,
         _blocks(r1, rows, mr - e, n_blk),
         dxh, dxh[:, e : e + CANVAS], dyc,
         _blocks(bscp, CANVAS, 0, n_blk)[:, 0].repeat(b, 1, 1),
-        radius, (e, mc),
+        radius, (e, mc), m.dtype,
     )
     out = out.reshape(b, n_blk, 5, CANVAS, wp).transpose(1, 2)
     return out.reshape(b, 5, hp, wp)
@@ -391,7 +434,7 @@ def _fused_box_update_plain(m, r0, r1, bsc, winsize, radius, emit,
 
 def _fused_box_update_cuda(m, r0, r1, bsc, winsize, radius, emit, margin):
     b, _, hp, wp = m.shape
-    _check(m, "m", torch.bfloat16, (b, 5, hp, wp), m.device)
+    _check(m, "m", m.dtype, (b, 5, hp, wp), m.device)
     if winsize // 2 > 31:
         raise ValueError(f"winsize {winsize} exceeds the kernel's 63")
     flow = emit == "flow"
@@ -403,30 +446,34 @@ def _fused_box_update_cuda(m, r0, r1, bsc, winsize, radius, emit, margin):
     else:
         _check_warp_operands(r0, r1, bsc, radius, margin)
         hk, wk = bsc.shape
-        out = torch.empty((b, 5, hp, wp), dtype=torch.bfloat16, device=m.device)
+        out = torch.empty((b, 5, hp, wp), dtype=m.dtype, device=m.device)
         r0_ptr, r1_ptr, bsc_ptr = r0.data_ptr(), r1.data_ptr(), bsc.data_ptr()
-    fn = _build.launcher("fused_box_update", 5, 10)
+    key = "fused_box_update" if m.dtype == torch.bfloat16 else "fused_box_update_f32"
+    fn = _build.launcher("fused_box_update", 5, 10, f"nsof_{key}")
     _build.check(fn(
         m.data_ptr(), r0_ptr, r1_ptr, bsc_ptr, out.data_ptr(),
         b, hk, wk, hp, wp, margin[0], margin[1], winsize, radius, int(flow),
         _stream(m),
-    ), "fused_box_update")
-    _build.LAUNCHES["fused_box_update"] += 1
+    ), key)
+    _build.LAUNCHES[key] += 1
     return out
 
 
 def fused_box_update(m, r0, r1, bsc, winsize, radius, emit, margin=R1_MARGIN):
     """K4: one Farnebäck iteration on the canvas.
 
-    Box-sums the bfloat16 system ``m`` [B, 5, hp, wp] over (2·(winsize//2)
-    +1)² in float32 (normalised by winsize²), solves the 2×2 system with
-    +1e-3 on the determinant, then ``emit='matrices'``: rebuilds M′
-    (bfloat16) from that flow as K3 does, with the flow of the ±(radius+1)
-    halo rows solved from the edge-extended M; ``emit='flow'``: returns the
-    float32 flow [B, 2, hp, wp].  Counterpart of ``_fused_box_update_cm``.
+    Box-sums the system ``m`` [B, 5, hp, wp] (bfloat16, or float32 for
+    ``kernel_mode='fused_f32'``) over (2·(winsize//2)+1)² in float32
+    (normalised by winsize²), solves the 2×2 system with +1e-3 on the
+    determinant, then ``emit='matrices'``: rebuilds M′ (in m's dtype) from
+    that flow as K3 does, with the flow of the ±(radius+1) halo rows solved
+    from the edge-extended M; ``emit='flow'``: returns the float32 flow
+    [B, 2, hp, wp].  Counterpart of ``_fused_box_update_cm``.
     """
     if emit not in ("matrices", "flow"):
         raise ValueError(f"emit must be 'matrices' or 'flow', got {emit!r}")
+    if m.dtype not in M_DTYPES:
+        raise ValueError(f"m must be one of {M_DTYPES}, got {m.dtype}")
     if m.shape[2] % CANVAS:
         raise ValueError(f"canvas height {m.shape[2]} is not a multiple of {CANVAS}")
     if m.is_cuda:
@@ -434,6 +481,174 @@ def fused_box_update(m, r0, r1, bsc, winsize, radius, emit, margin=R1_MARGIN):
                                       margin)
     return _fused_box_update_plain(m, r0, r1, bsc, winsize, radius, emit,
                                    margin)
+
+
+# ── the level route: expansion, K5 / K7 update, K6 solve ──────────────────
+
+
+def _tap_sum(x: torch.Tensor, k: np.ndarray, dim: int, n_out: int):
+    """Σ_t k[t]·x[t : t + n_out] along ``dim`` (a valid-mode correlation),
+    as weighted sums of shifted slices: no convolution, so no TF32 on the
+    card."""
+    out = float(k[0]) * x.narrow(dim, 0, n_out)
+    for t in range(1, len(k)):
+        out.add_(x.narrow(dim, t, n_out), alpha=float(k[t]))
+    return out
+
+
+def poly_expansion_fast(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
+    """``[B, H, W]`` image → ``[B, 5, H, W]`` expansion (b_y, b_x, a_yy,
+    a_xx, a_xy) of the edge-extended image, on the image's own extent.
+
+    Counterpart of ``poly_expansion_fast`` / ``_poly_expansion_channels``,
+    which the JAX package runs as XLA depthwise convolutions: three
+    vertical (2n+1)-tap passes, then six horizontal ones on their
+    edge-extended results."""
+    g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_coeffs(n, sigma)
+    h, w = img.shape[-2:]
+    imgp = _extend(img, n, n, 0, 0)
+    s0, s1, s2 = (_extend(_tap_sum(imgp, k, -2, h), 0, 0, n, n)
+                  for k in (g, xg, xxg))
+    b1 = _tap_sum(s0, g, -1, w)
+    b2 = _tap_sum(s1, g, -1, w)
+    b3 = _tap_sum(s0, xg, -1, w)
+    b4 = _tap_sum(s0, xxg, -1, w)
+    b5 = _tap_sum(s2, g, -1, w)
+    b6 = _tap_sum(s1, xg, -1, w)
+    return torch.stack(
+        [b2 * ig11, b3 * ig11, b1 * ig03 + b5 * ig33, b1 * ig03 + b4 * ig33,
+         b6 * ig55],
+        dim=1,
+    )
+
+
+def _pad_of(r0, r1p, radius):
+    """The edge pad of ``r1p`` around ``r0``'s extent; raises unless it is
+    even on both axes and covers the warp's reach of radius + 1."""
+    b, five, h, w = r0.shape
+    pad = (r1p.shape[-1] - w) // 2
+    if (five != 5 or pad < radius + 1
+            or tuple(r1p.shape) != (b, 5, h + 2 * pad, w + 2 * pad)):
+        raise ValueError(f"r1p {tuple(r1p.shape)} is not r0 {tuple(r0.shape)} "
+                         f"padded by radius + 1 = {radius + 1} or more")
+    return pad
+
+
+def _warp_full(dx, dy, r0, r1p, bsc, radius):
+    """Plain version of K7, and the ``'xla'`` route's update (the JAX
+    package's ``update_matrices_fast``): r1 sampled at (x + dx, y + dy) as
+    the sum of its (2r+2)² hat-weighted taps, ky outer, kx inner,
+    acc + tap·(wy·wx), then the system in float32."""
+    _, _, h, w = r0.shape
+    pad = _pad_of(r0, r1p, radius)
+    dxc = dx.clamp(-radius, radius)
+    dyc = dy.clamp(-radius, radius)
+    acc = torch.zeros_like(r0)
+    for ky in range(-radius, radius + 2):
+        wy = _hat(dyc, ky)
+        for kx in range(-radius, radius + 2):
+            wgt = (wy * _hat(dxc, kx))[:, None]
+            tap = r1p[:, :, pad + ky : pad + ky + h, pad + kx : pad + kx + w]
+            acc = acc + tap * wgt
+    return _build_system(r0, acc, dxc, dyc, bsc, torch.float32)
+
+
+def _update_matrices_plain(dx, dy, r0, r1p, bsc, radius, separable=False):
+    """Plain version of :func:`update_matrices`: K5's is K3's on the
+    level's extent, K7's :func:`_warp_full`."""
+    if separable:
+        pad = _pad_of(r0, r1p, radius)
+        return _update_matrices_sep_plain(dx, dy, r0, r1p, bsc, radius,
+                                          (pad, pad), torch.float32)
+    return _warp_full(dx, dy, r0, r1p, bsc, radius)
+
+
+def _update_matrices_cuda(dx, dy, r0, r1p, bsc, radius, pad):
+    b, _, h, w = r0.shape
+    for name, t in (("dx", dx), ("dy", dy)):
+        _check(t, name, torch.float32, (b, h, w), r0.device)
+    _check(r0, "r0", torch.float32, (b, 5, h, w), r0.device)
+    _check(r1p, "r1p", torch.float32, r1p.shape, r0.device)
+    _check(bsc, "bsc", torch.float32, (h, w), r0.device)
+    out = torch.empty((b, 5, h, w), dtype=torch.float32, device=r0.device)
+    fn = _build.launcher("update_matrices", 6, 5)
+    _build.check(fn(
+        dx.data_ptr(), dy.data_ptr(), r0.data_ptr(), r1p.data_ptr(),
+        bsc.data_ptr(), out.data_ptr(), b, h, w, pad, radius, _stream(r0),
+    ), "update_matrices")
+    _build.LAUNCHES["update_matrices"] += 1
+    return out
+
+
+def update_matrices(dx, dy, r0, r1p, bsc, radius, separable=False):
+    """K5 (``separable=True``) or K7: the float32 system M ``[B, 5, H, W]``
+    of a level of the level route.
+
+    ``dx``/``dy`` ``[B, H, W]`` the (unclamped) flow, ``r0`` ``[B, 5, H,
+    W]`` the first frame's expansion, ``r1p`` the second's, edge-padded by
+    ``pad ≥ radius + 1`` on every side, ``bsc`` the ``[H, W]`` border
+    scale.  Counterpart of ``update_matrices_pallas``: K5 is the two-pass
+    separable warp (K3's kernel, in float32, on the level's own extent), K7
+    the (2r+2)²-tap warp, bit for bit ``update_matrices_fast``.  Neither
+    caps the radius (the TPU kernels' halo of 8 allows r ≤ 7).
+    """
+    if not r0.is_cuda:
+        return _update_matrices_plain(dx, dy, r0, r1p, bsc, radius, separable)
+    pad = _pad_of(r0, r1p, radius)
+    if separable:
+        return _update_matrices_sep_cuda(
+            dx, dy, r0, r1p, bsc, radius, (pad, pad), torch.float32,
+            "update_matrices_sep_level")
+    return _update_matrices_cuda(dx, dy, r0, r1p, bsc, radius, pad)
+
+
+def _box_solve_plain(m: torch.Tensor, winsize: int):
+    """Plain version of K6: the TPU kernel's window sum (each column of the
+    window in log-tree order, then those column sums in the same order)
+    over the edge-extended M, scaled, then solved."""
+    _, _, h, w = m.shape
+    mm = winsize // 2
+    win = 2 * mm + 1
+    me = _extend(m, mm, mm, mm, mm)
+    g = _win_sum_tree(_win_sum_tree(me, h, win, dim=-2), w, win)
+    return _solve(g * (1.0 / (winsize * winsize)))
+
+
+def _box_solve_cuda(m: torch.Tensor, winsize: int):
+    b, _, h, w = m.shape
+    _check(m, "m", torch.float32, (b, 5, h, w), m.device)
+    out = torch.empty((2, b, h, w), dtype=torch.float32, device=m.device)
+    fn = _build.launcher("box_solve", 3, 4)
+    _build.check(fn(
+        m.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), b, h, w, winsize,
+        _stream(m),
+    ), "box_solve")
+    _build.LAUNCHES["box_solve"] += 1
+    return out[0], out[1]
+
+
+def box_solve(m: torch.Tensor, winsize: int):
+    """K6: float32 system ``[B, 5, H, W]`` → flow ``(dx, dy)``, each ``[B,
+    H, W]`` float32: the (2·(winsize//2)+1)² box sum of M with edge
+    replication, scaled by 1/winsize², and the 2×2 solve with +1e-3 on the
+    determinant.  Counterpart of ``box_solve_pallas``, summed in its
+    kernel's order at every winsize (the JAX driver leaves the kernel for
+    ``_box_sum_dw`` when winsize//2 > 8)."""
+    if m.is_cuda:
+        return _box_solve_cuda(m, winsize)
+    return _box_solve_plain(m, winsize)
+
+
+def _box_solve_dw(m: torch.Tensor, winsize: int):
+    """The ``'xla'`` route's solve (``update_flow_blur_fast`` without the
+    Pallas kernel): the box sum of ``_box_sum_dw``, a vertical then a
+    horizontal (2m+1)-tap sum with edge replication, scaled, then
+    solved."""
+    _, _, h, w = m.shape
+    mm = winsize // 2
+    ones = np.ones(2 * mm + 1, np.float32)
+    v = _extend(_tap_sum(_extend(m, mm, mm, 0, 0), ones, -2, h), 0, 0, mm, mm)
+    return _solve(_tap_sum(v, ones, -1, w) * (1.0 / (winsize * winsize)))
 
 
 # ── pyramid glue ──────────────────────────────────────────────────────────
@@ -475,11 +690,13 @@ def _canvas(size: int) -> int:
     return -(-size // CANVAS) * CANVAS
 
 
-def _farneback_fast_fused(img0, img1, params: FarnebackParams, radius: int):
+def _farneback_fast_fused(img0, img1, params: FarnebackParams, radius: int,
+                         m_dtype=torch.bfloat16):
     """The fused route on ``[B, H, W]`` float32 frames → (dx, dy)
-    ``[B, H, W]``.  Level k ≥ 1 images are built fine→coarse as a cascade:
-    level 1 blurs the original (cv2's construction), deeper levels blur the
-    previous level with the incremental sigma."""
+    ``[B, H, W]``, the system M stored in ``m_dtype``.  Level k ≥ 1 images
+    are built fine→coarse as a cascade: level 1 blurs the original (cv2's
+    construction), deeper levels blur the previous level with the
+    incremental sigma."""
     b, h, w = img0.shape
     levels = _effective_levels(h, w, params.levels, params.pyr_scale)
     lvl_imgs = {}
@@ -523,14 +740,9 @@ def _farneback_fast_fused(img0, img1, params: FarnebackParams, radius: int):
         r0 = poly_expansion(i0, params.poly_n, params.poly_sigma, hp, wp, blur)
         r1 = poly_expansion(i1, params.poly_n, params.poly_sigma, hp, wp, blur,
                             margin=R1_MARGIN)
-        if dx is None:
-            dx = torch.zeros((b, hk, wk), dtype=torch.float32, device=img0.device)
-            dy = dx
-        else:
-            dx = _resize_hwb(dx, hk, wk) * (1.0 / params.pyr_scale)
-            dy = _resize_hwb(dy, hk, wk) * (1.0 / params.pyr_scale)
+        dx, dy = _upscale_flow(dx, dy, b, hk, wk, params.pyr_scale, img0.device)
         bsc = border_scale(hk, wk, str(img0.device))
-        m = update_matrices_sep(dx, dy, r0, r1, bsc, radius)
+        m = update_matrices_sep(dx, dy, r0, r1, bsc, radius, out_dtype=m_dtype)
         for _ in range(params.iterations - 1):
             m = fused_box_update(m, r0, r1, bsc, params.winsize, radius,
                                  "matrices")
@@ -540,12 +752,93 @@ def _farneback_fast_fused(img0, img1, params: FarnebackParams, radius: int):
     return dx, dy
 
 
+def _upscale_flow(dx, dy, b, hk, wk, pyr_scale, device):
+    """The flow carried into a level of ``hk × wk``: zeros at the coarsest
+    level, else the coarser level's flow resized and scaled by
+    1/pyr_scale."""
+    if dx is None:
+        zero = torch.zeros((b, hk, wk), dtype=torch.float32, device=device)
+        return zero, zero
+    return (_resize_hwb(dx, hk, wk) * (1.0 / pyr_scale),
+            _resize_hwb(dy, hk, wk) * (1.0 / pyr_scale))
+
+
+def _farneback_fast_levels(img0, img1, params: FarnebackParams, radius: int,
+                           kernel_mode: str):
+    """The level route (``kernel_mode`` 'pallas_sep', 'pallas' or 'xla')
+    on ``[B, H, W]`` float32 frames → (dx, dy) ``[B, H, W]``.
+
+    Every level blurs the original frames with its own sigma (reflect-101
+    pad, then resize), expands both in plain torch, pads r1 by radius + 1
+    once, and iterates the float32 system: one update, then ``iterations``
+    × (solve, and update for all but the last)."""
+    b, h, w = img0.shape
+    e = radius + 1
+    if kernel_mode == "xla":
+        def update(dx, dy, r0, r1p, bsc):
+            return _warp_full(dx, dy, r0, r1p, bsc, radius)
+
+        def solve(m):
+            return _box_solve_dw(m, params.winsize)
+    else:
+        sep = kernel_mode == "pallas_sep"
+
+        def update(dx, dy, r0, r1p, bsc):
+            return update_matrices(dx, dy, r0, r1p, bsc, radius, separable=sep)
+
+        def solve(m):
+            return box_solve(m, params.winsize)
+
+    levels = _effective_levels(h, w, params.levels, params.pyr_scale)
+    dx = dy = None
+    for k in range(levels, -1, -1):
+        scale = params.pyr_scale**k
+        sigma = (1.0 / scale - 1.0) * 0.5
+        smooth_sz = max(_cv_round(sigma * 5) | 1, 3)
+        wk = _cv_round(w * scale)
+        hk = _cv_round(h * scale)
+        dx, dy = _upscale_flow(dx, dy, b, hk, wk, params.pyr_scale, img0.device)
+        n = smooth_sz // 2
+        gk = _gaussian_blur_kernel(smooth_sz, sigma)
+        i0 = _resize_hwb(_blur_valid(_reflect_pad(img0, n), gk), hk, wk)
+        i1 = _resize_hwb(_blur_valid(_reflect_pad(img1, n), gk), hk, wk)
+        r0 = poly_expansion_fast(i0, params.poly_n, params.poly_sigma)
+        r1p = _extend(poly_expansion_fast(i1, params.poly_n, params.poly_sigma),
+                      e, e, e, e)
+        bsc = border_scale(hk, wk, str(img0.device))
+        m = update(dx, dy, r0, r1p, bsc)
+        for i in range(params.iterations):
+            dx, dy = solve(m)
+            if i < params.iterations - 1:
+                m = update(dx, dy, r0, r1p, bsc)
+    return dx, dy
+
+
+KERNEL_MODES = ("auto", "fused", "fused_f32", "pallas_sep", "pallas", "xla")
+
+
+def route(kernel_mode: str, params: FarnebackParams) -> str:
+    """The route ``kernel_mode`` runs, as the JAX package picks it on the
+    TPU: 'auto' is 'fused'; the fused routes fall back to 'pallas_sep' for
+    presets beyond their halos (winsize//2 > 8 or poly_n > 7).  Unlike the
+    JAX package, no route depends on the batch size."""
+    if kernel_mode not in KERNEL_MODES:
+        raise ValueError(f"kernel_mode must be one of {KERNEL_MODES}, "
+                         f"got {kernel_mode!r}")
+    if kernel_mode == "auto":
+        kernel_mode = "fused"
+    if kernel_mode in ("fused", "fused_f32") and (
+            params.winsize // 2 > 8 or params.poly_n > 7):
+        return "pallas_sep"
+    return kernel_mode
+
+
 def farneback_fast(
     prev,
     next_,
     params: FarnebackParams = FarnebackParams(),
     warp_radius: int = 4,
-    kernel_mode: str = "fused",
+    kernel_mode: str = "auto",
     out_layout: str = "bhw2",
     device=None,
 ):
@@ -556,25 +849,21 @@ def farneback_fast(
 
     Runs on ``device`` (default: the CUDA device; raises ``RuntimeError``
     when there is none — pass ``device='cpu'`` for the plain versions).
-    Only the fused route is ported: ``kernel_mode`` 'fused' or 'auto'
-    (both run it, at any batch size).  The other routes raise
-    ``NotImplementedError``.
+    ``kernel_mode``: 'fused' (K2–K4, M in bfloat16), 'fused_f32' (M in
+    float32), 'pallas_sep' (K5 + K6), 'pallas' (K7 + K6), 'xla' (plain
+    torch), or 'auto', routed as :func:`route` says.  Every route takes any
+    batch size.
     """
+    kernel_mode = route(kernel_mode, params)
     dev = _build.resolve_device(device)
-    if kernel_mode not in ("fused", "auto"):
-        raise NotImplementedError(
-            f"kernel_mode={kernel_mode!r} is not ported yet: the pallas_sep, "
-            "pallas and xla routes (kernels K5-K7) are ROADMAP.md queue 2"
-        )
-    if params.winsize // 2 > 8 or params.poly_n > 7:
-        raise NotImplementedError(
-            "presets outside the fused route's halos (winsize//2 > 8 or "
-            "poly_n > 7) take the pallas_sep route in the JAX package "
-            "(kernels K5/K6, ROADMAP.md queue 2), not ported yet"
-        )
     img0 = torch.as_tensor(prev).to(dev, torch.float32).contiguous()
     img1 = torch.as_tensor(next_).to(dev, torch.float32).contiguous()
-    dx, dy = _farneback_fast_fused(img0, img1, params, warp_radius)
+    if kernel_mode in ("fused", "fused_f32"):
+        m_dtype = torch.bfloat16 if kernel_mode == "fused" else torch.float32
+        dx, dy = _farneback_fast_fused(img0, img1, params, warp_radius, m_dtype)
+    else:
+        dx, dy = _farneback_fast_levels(img0, img1, params, warp_radius,
+                                        kernel_mode)
     if out_layout == "planes":
         return dx, dy
     return torch.stack([dx, dy], dim=-1)

@@ -3,8 +3,9 @@
 Counterpart of the throughput path of :mod:`nsof_tpu.pipelines.segmentation`
 (``seg_batch_fast`` and its head).  Per frame pair the device-state map
 gates the merged (FLAG=2) ROI; a static-size window is cropped at the ROI's
-origin (K1); the fused fast Farnebäck route computes flow on the window
-(K2–K4); the head thresholds |flow|² and smooths it with N × (dilate ∘
+origin (K1); the fast Farnebäck computes flow on the window (the fused
+route, K2–K4, or for presets beyond its halos the level route, K5 and K6);
+the head thresholds |flow|² and smooths it with N × (dilate ∘
 erode) under the ellipse, re-masking to the box between steps to emulate
 the reference's morphology on the cropped region; and the mask is
 scattered back into the frame.
@@ -47,11 +48,11 @@ def seg_batch_fast(
     next_gray,
     cfg: PipelineConfig,
     warp_radius: int | None = None,
-    kernel_mode: str = "fused",
+    kernel_mode: str = "auto",
     return_flow: bool = False,
     device=None,
 ) -> dict:
-    """Throughput path: batched ROI gating + the fused fast Farnebäck.
+    """Throughput path: batched ROI gating + the fast Farnebäck.
 
     ``mem_u8`` ``[B, gh, gw]`` uint8 device-state maps, ``prev_gray`` /
     ``next_gray`` ``[B, H, W]`` uint8 frames (tensors or numpy arrays).
@@ -61,7 +62,9 @@ def seg_batch_fast(
 
     Runs on ``device``; by default the CUDA device, and it raises
     ``RuntimeError`` when there is none (``device='cpu'`` runs the plain
-    versions).  ``warp_radius=None`` takes ``cfg.warp_radius``.
+    versions).  ``warp_radius=None`` takes ``cfg.warp_radius``;
+    ``kernel_mode`` picks the Farnebäck route (see
+    :func:`nsof_tpu_torch.ops.farneback_fast.farneback_fast`).
     """
     dev = _build.resolve_device(device)
     if warp_radius is None:

@@ -163,20 +163,6 @@ def test_resize_matches_jax(src, dst):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["xla", "pallas", "pallas_sep", "fused_f32"])
-def test_unported_routes_raise(mode):
-    img = np.zeros((2, 64, 64), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tff.farneback_fast(img, img, FarnebackParams(), 3, mode, device="cpu")
-
-
-def test_unported_presets_raise():
-    img = np.zeros((2, 64, 64), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tff.farneback_fast(img, img, FarnebackParams(0.6, 3, 3, 3, 10, 1.05), 3,
-                           device="cpu")
-
-
 def test_any_batch_size():
     rng = np.random.default_rng(7)
     img = (rng.random((3, 48, 70)) * 255).astype(np.uint8)

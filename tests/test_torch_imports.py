@@ -83,6 +83,9 @@ def test_wrappers_raise_without_kernel_library(cuda_device, monkeypatch, tmp_pat
     r1 = torch.zeros((b, 5, hp + 16, wp + 32), device=dev)
     bsc = tff.border_scale(hk, wk, str(dev))
     m = torch.zeros((b, 5, hp, wp), device=dev, dtype=torch.bfloat16)
+    m32 = torch.zeros((b, 5, hp, wp), device=dev)
+    lvl0 = torch.zeros((b, 5, hk, wk), device=dev)
+    lvl1 = torch.zeros((b, 5, hk + 8, wk + 8), device=dev)
     calls = [
         lambda: troi.crop_windows_batch(
             torch.zeros((b, 64, 64), dtype=torch.uint8, device=dev),
@@ -90,8 +93,37 @@ def test_wrappers_raise_without_kernel_library(cuda_device, monkeypatch, tmp_pat
             torch.zeros(b, dtype=torch.int32, device=dev), 16, 16),
         lambda: tff.poly_expansion(img, 5, 1.2, hp, wp),
         lambda: tff.update_matrices_sep(img, img, r0, r1, bsc, 3),
+        lambda: tff.update_matrices_sep(img, img, r0, r1, bsc, 3,
+                                        out_dtype=torch.float32),
         lambda: tff.fused_box_update(m, r0, r1, bsc, 15, 3, "matrices"),
+        lambda: tff.fused_box_update(m32, r0, r1, bsc, 15, 3, "matrices"),
+        lambda: tff.update_matrices(img, img, lvl0, lvl1, bsc, 3, separable=True),
+        lambda: tff.update_matrices(img, img, lvl0, lvl1, bsc, 3),
+        lambda: tff.box_solve(lvl0, 3),
     ]
     for call in calls:
         with pytest.raises(RuntimeError):
             call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,winsize", [(3, 3), (8, 21)])
+def test_level_route_kernels_match_plain(cuda_device, radius, winsize):
+    """K5, K7 and K6 on the card equal their plain versions (built with
+    --fmad=false, summed in the same order), at radius 8 and m = 10 too,
+    beyond the TPU kernels' halo."""
+    gen = torch.Generator().manual_seed(radius)
+    b, h, w, pad = 3, 45, 70, radius + 1
+    r0 = (torch.rand((b, 5, h, w), generator=gen) * 100).to(cuda_device)
+    r1p = (torch.rand((b, 5, h + 2 * pad, w + 2 * pad), generator=gen) * 100).to(cuda_device)
+    dx, dy = ((torch.rand((b, h, w), generator=gen) * 6 - 3).to(cuda_device)
+              for _ in range(2))
+    bsc = tff.border_scale(h, w, str(cuda_device))
+    for sep in (True, False):
+        got = tff.update_matrices(dx, dy, r0, r1p, bsc, radius, separable=sep)
+        ref = tff._update_matrices_plain(dx, dy, r0, r1p, bsc, radius, separable=sep)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    got = tff.box_solve(got, winsize)
+    ref = tff._box_solve_plain(ref, winsize)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
