@@ -44,7 +44,7 @@ from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import DATASETS
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
-from nsof_tpu_torch.ops.farneback import _gaussian_blur_kernel
+from nsof_tpu_torch.ops.farneback import _gaussian_blur_kernel, _poly_exp_coeffs
 from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast
 
 H, W, MEMSIZE = 480, 640, 80
@@ -58,6 +58,25 @@ EXPECTED_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
                      "update_matrices_sep": 4, "fused_box_update": 12}
 F32_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
                 "update_matrices_sep_f32": 4, "fused_box_update_f32": 12}
+# K1 beyond the main path: name → (frames shape, dtype, window, oys, oxs);
+# origins ≡ 0, 1, 15 (mod 16), ragged widths, 1-, 2-, 4- and 12-byte
+# elements, negative and clamped origins, B = 1
+K1_CASES = {
+    "ox_mod16_0": ((4, H, W), torch.uint8, WIN, [0, 100, 224, 7], [0, 160, 256, 32]),
+    "ox_mod16_1": ((4, H, W), torch.uint8, WIN, [3, 99, 1, 224], [1, 161, 17, 241]),
+    "ox_mod16_15": ((4, H, W), torch.uint8, WIN, [5, 0, 200, 13], [15, 175, 255, 31]),
+    "ragged_width": ((3, 120, 200), torch.uint8, (50, 77), [1, 2, 70], [3, 0, 123]),
+    "bf16": ((3, 90, 130), torch.bfloat16, (37, 51), [0, 5, 53], [1, 7, 79]),
+    "bf16_channels": ((2, 40, 50, 2), torch.bfloat16, (21, 29), [3, 19], [0, 21]),
+    "f32": ((2, 50, 60), torch.float32, (17, 17), [0, 33], [5, 43]),
+    "f32_channels": ((3, 60, 70, 3), torch.float32, (20, 33), [0, 11, 40], [0, 5, 37]),
+    "negative_and_clamped": ((4, 100, 150), torch.uint8, (40, 60),
+                             [-5, 1000, -1000, 70], [-7, 200, -1000, 95]),
+    "batch_1": ((1, H, W), torch.uint8, WIN, [31], [77]),
+}
+# K4's (winsize, radius) checks: grasp, tabletennis, the fused route's limits,
+# the widest window the kernel takes
+K4_CASES = [(15, RADIUS), (4, 5), (17, 7), (63, 7)]
 # the autodriving preset: 4 pyramid levels × 3 iterations
 AD_B = 128
 AD_B_CHECK = 4
@@ -210,6 +229,18 @@ def f32_check(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
     return (got - ref).abs().max().item()
 
 
+def exact_check(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
+    """Kernel vs plain, required equal (built with --fmad=false, summed in
+    one order).  Returns max |Δ|, 0."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    err = (got.float() - ref.float()).abs().max().item()
+    if err != 0:
+        raise AssertionError(f"{name} differs from its plain version by {err}")
+    return err
+
+
 def flow_check(got, ref, name: str, tol: float = 1e-5) -> float:
     err = max((g - r).abs().max().item() for g, r in zip(got, ref))
     if not err <= tol:
@@ -235,6 +266,17 @@ def plain_route():
     finally:
         for name, (mod, _) in names.items():
             setattr(mod, name, saved[name])
+
+
+def poly_filters_2d(n: int, sigma: float, dev) -> torch.Tensor:
+    """The five 2-D filters ``[5, 1, 2n+1, 2n+1]`` whose correlation with
+    the edge-extended image is K2's expansion without blur: the separable
+    taps' outer products (rows first) times the ig scales."""
+    g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_coeffs(n, sigma)
+    o = np.outer
+    f = np.stack([ig11 * o(xg, g), ig11 * o(g, xg), ig03 * o(g, g) + ig33 * o(xxg, g),
+                  ig03 * o(g, g) + ig33 * o(g, xxg), ig55 * o(xg, xg)])
+    return torch.from_numpy(f.astype(np.float32))[:, None].to(dev)
 
 
 def level0_operands(b: int, dev):
@@ -394,6 +436,7 @@ def tree_adds(win: int) -> int:
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version on the card: K1–K4 at the main
     path's level-0 shapes (B = 16), the float32 forms of K3 and K4 there,
+    K1 also at ``K1_CASES`` and K4 at every ``K4_CASES`` (winsize, radius),
     K5–K7 at the autodriving path's level-0 shapes (B = 4).  Returns the
     max |Δ| of each."""
     hk, wk = WIN
@@ -402,13 +445,22 @@ def check_kernels(dev) -> dict:
     frames = torch.from_numpy(rng.integers(0, 256, (B_CHECK, H, W), dtype=np.uint8)).to(dev)
     oys = torch.from_numpy(rng.integers(0, H - hk + 1, B_CHECK).astype(np.int32)).to(dev)
     oxs = torch.from_numpy(rng.integers(0, W - wk + 1, B_CHECK).astype(np.int32)).to(dev)
-    got = troi.crop_windows_batch(frames, oys, oxs, hk, wk)
-    ref = troi._crop_windows_plain(frames, oys, oxs, hk, wk)
-    errs["crop_windows"] = (got.int() - ref.int()).abs().max().item()
-    if errs["crop_windows"] != 0:
-        raise AssertionError("K1 differs from its plain version")
-    emit({"phase": "check", "kernel": "crop_windows", "max_abs_err": errs["crop_windows"],
-          "tolerance": 0})
+    cases = {"main_path": (frames, oys, oxs, hk, wk)}
+    for name, (shape, dtype, (ch, cw), cy, cx) in K1_CASES.items():
+        if dtype == torch.uint8:
+            f = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+        else:
+            f = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+        cases[name] = (f.to(dev), torch.tensor(cy, dtype=torch.int32, device=dev),
+                       torch.tensor(cx, dtype=torch.int32, device=dev), ch, cw)
+    for name, args in cases.items():
+        got = troi.crop_windows_batch(*args)
+        ref = troi._crop_windows_plain(*args)
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            raise AssertionError(f"K1 differs from its plain version in case {name}")
+    errs["crop_windows"] = 0
+    emit({"phase": "check", "kernel": "crop_windows", "cases": list(cases),
+          "max_abs_err": 0, "tolerance": 0})
 
     ops = level0_operands(B_CHECK, dev)
     k2 = 0.0
@@ -437,21 +489,16 @@ def check_kernels(dev) -> dict:
           "max_abs_err": errs["update_matrices_sep_f32"],
           "tolerance": "1e-6 of its channel max"})
 
-    for key, m, check in (("fused_box_update", ops["m"], bf16_check),
-                          ("fused_box_update_f32", ops["m32"],
-                           lambda g, r: f32_check(g, r, "K4 f32"))):
-        kargs = (m, ops["r0"], ops["r1"], ops["bsc"], 15, RADIUS)
-        k4m = check(tff.fused_box_update(*kargs, "matrices"),
-                    tff._fused_box_update_plain(*kargs, "matrices"))
-        k4f = (tff.fused_box_update(*kargs, "flow")
-               - tff._fused_box_update_plain(*kargs, "flow")).abs().max().item()
-        if not k4f <= 1e-3:
-            raise AssertionError(f"{key} flow differs from its plain version by {k4f} px")
-        errs[key] = max(k4m, k4f)
-        emit({"phase": "check", "kernel": key, "max_abs_err_matrices": k4m,
-              "max_abs_err_flow_px": k4f,
-              "tolerance": "matrices as K3 (bf16) or 1e-6 of the channel max (f32); "
-                           "flow 1e-3 px"})
+    for key, m in (("fused_box_update", ops["m"]), ("fused_box_update_f32", ops["m32"])):
+        for winsize, radius in K4_CASES:
+            for out in ("matrices", "flow"):
+                kargs = (m, ops["r0"], ops["r1"], ops["bsc"], winsize, radius, out)
+                err = exact_check(tff.fused_box_update(*kargs),
+                                  tff._fused_box_update_plain(*kargs),
+                                  f"{key} ({winsize}, {radius}) {out}")
+                errs[key] = max(errs.get(key, 0.0), err)
+                emit({"phase": "check", "kernel": key, "winsize": winsize, "radius": radius,
+                      "emit": out, "max_abs_err": err, "tolerance": 0})
     torch.cuda.synchronize()
     del ops
 
@@ -519,17 +566,41 @@ def kernel_times(launches: dict, errs: dict, dev, prev) -> list[dict]:
     warp_ops = (2 * RADIUS + 2) * 14 * (1 + 2 * e / hp) + (2 * RADIUS + 2) * 14 + 34
     box_ops = (5 * (2 + 6 + 1) + 11) * (1 + 2 * e / 32)
     sep_args = (ops["dx"], ops["dy"], ops["r0"], ops["r1"], ops["bsc"], RADIUS)
+    ox_odd = torch.full((b,), 161, dtype=torch.int32, device=dev)
     entry("crop_windows",
           lambda: troi.crop_windows_batch(frames, oy, ox, hk, wk),
           lambda: troi._crop_windows_plain(frames, oy, ox, hk, wk),
           lambda: dst.copy_(frames[:, 100:100 + hk, 160:160 + wk]),
-          2 * b * hk * wk, 0, b)
+          2 * b * hk * wk, 0, b,
+          unaligned_origin={"ox": 161, "ms": time_ms(
+              lambda: troi.crop_windows_batch(frames, oy, ox_odd, hk, wk)),
+              "library_ms": time_ms(
+                  lambda: dst.copy_(frames[:, 100:100 + hk, 161:161 + wk]))})
+    # K2 without the blur and margin beside one conv2d of the edge-padded
+    # window with the five 2-D filters (float32, no TF32)
+    xpad = tff._extend(ops["img1"], n_, hp - hk + n_, n_, wp - wk + n_)[:, None]
+    filt = poly_filters_2d(n_, 1.2, dev)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        conv = lambda: torch.nn.functional.conv2d(xpad, filt)  # noqa: E731
+        lib_err = (conv() - tff.poly_expansion(ops["img1"], 5, 1.2, hp, wp)).abs().max().item()
+        if not lib_err <= 1e-3:
+            raise AssertionError(f"the conv2d yardstick differs from K2 by {lib_err}")
+        nb_bms, nb_by = bound_ms(b * hk * wk * 4 + b * 5 * hp * wp * 4,
+                                 b * hp * wp * (27 * n_ + 12))
+        no_blur = {"ms": time_ms(lambda: tff.poly_expansion(ops["img1"], 5, 1.2, hp, wp)),
+                   "library_ms": time_ms(conv), "library_max_abs_err": lib_err,
+                   "bound_ms": nb_bms, "bound_by": nb_by}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del xpad
     entry("poly_expansion",
           lambda: tff.poly_expansion(ops["img1"], 5, 1.2, hp, wp, ops["blur"], tff.R1_MARGIN),
           lambda: tff._poly_expansion_plain(ops["img1"], 5, 1.2, hp, wp, ops["blur"],
                                             tff.R1_MARGIN), None,
           b * hk * wk * 4 + b * 5 * h1 * w1 * 4,
-          b * h1 * w1 * (2 * (4 * nb + 1) + 27 * n_ + 12), b)
+          b * h1 * w1 * (2 * (4 * nb + 1) + 27 * n_ + 12), b, no_blur_form=no_blur)
     for key, out_bytes, dtype in (("update_matrices_sep", 10, torch.bfloat16),
                                   ("update_matrices_sep_f32", 20, torch.float32)):
         entry(key,
@@ -597,7 +668,8 @@ def main() -> None:
     t0 = time.perf_counter()
     secs = _build.build_all()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "per_kernel": {k: round(v, 3) for k, v in secs.items()}})
+          "per_kernel": {k: round(v, 3) for k, v in secs.items()},
+          "ptxas": _build.BUILD_INFO})
 
     errs = check_kernels(dev)
 

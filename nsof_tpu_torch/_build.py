@@ -32,6 +32,8 @@ NVCC_FLAGS = (
     # no fused multiply-add contraction: the kernels then round like their
     # plain PyTorch versions, which run one operation per rounding
     "--fmad=false",
+    # report each kernel's registers, stack frame and spills (BUILD_INFO)
+    "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
 # the sources, csrc/<name>.cu, one library each
@@ -53,6 +55,8 @@ LAUNCH_KEYS = (
 )
 
 LAUNCHES = {name: 0 for name in LAUNCH_KEYS}
+# per source built in this process: ptxas's resource lines of each kernel
+BUILD_INFO: dict[str, list[str]] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, object] = {}
@@ -91,31 +95,32 @@ def nvcc_path() -> str:
     return str(pathlib.Path(home) / "bin" / "nvcc")
 
 
-def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    for header in sorted(CSRC.glob("*.cuh")):
+def _lib_path(name: str, csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    src = (csrc / f"{name}.cu").read_bytes()
+    for header in sorted(csrc.glob("*.cuh")):
         src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build_all(names=KERNELS) -> dict[str, float]:
-    """Compile every library that is missing, one ``nvcc`` per source, all
-    started together.  Returns the seconds each build took (0 when the
-    library was already there).  Raises ``RuntimeError`` if a build
-    fails or ``nvcc`` cannot be started."""
+def build_all(names=KERNELS, csrc: pathlib.Path = CSRC) -> dict[str, float]:
+    """Compile every library that is missing, one ``nvcc`` per source of
+    ``csrc``, all started together.  Returns the seconds each build took (0
+    when the library was already there) and keeps ptxas's resource lines in
+    :data:`BUILD_INFO`.  Raises ``RuntimeError`` if a build fails or
+    ``nvcc`` cannot be started."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     secs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, csrc)
         secs[name] = 0.0
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         try:
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -131,6 +136,9 @@ def build_all(names=KERNELS) -> dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
+        BUILD_INFO[name] = [line.strip() for line in log.splitlines()
+                            if "Used" in line or "stack frame" in line
+                            or "Compiling entry" in line]
         if proc.returncode != 0:
             errors.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
@@ -179,3 +187,25 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError_t {status}"
         )
+
+
+def main(argv=None) -> None:
+    """``python -m nsof_tpu_torch._build [--csrc DIR]``: build the kernels
+    of ``DIR`` (default: this package's ``csrc``) and print, per source,
+    one JSON line with its build seconds and ptxas's resource lines."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--csrc", type=pathlib.Path, default=CSRC)
+    args = ap.parse_args(argv)
+    names = [n for n in KERNELS if (args.csrc / f"{n}.cu").exists()]
+    secs = build_all(names, args.csrc.resolve())
+    for name in names:
+        print(json.dumps({"source": str(args.csrc / f"{name}.cu"),
+                          "seconds": round(secs[name], 3),
+                          "ptxas": BUILD_INFO.get(name, [])}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,8 @@ are exercised), B = 128 (the JAX grids' lane width), made with numpy from a
 seed.  Measured here: K2 within 3.3e-5 of the Pallas kernel on 0–255
 images; K3 and K4 M′ ≥ 99.5 % bit-equal, the elements more than one bf16
 ulp apart all below 2e-5 of their channel's largest magnitude; K4's flow
-within 1e-6 px.
+within 1e-6 px.  K4 is held at the grasp pair (winsize 15, radius 3) and at
+tabletennis's (4, 5) by the same tolerances.
 """
 
 import jax.numpy as jnp
@@ -72,6 +73,7 @@ def case():
     for name, kw in K2_CASES.items():
         got[name] = tff.poly_expansion(t(img0), 5, 1.2, HP, WP, kw["blur"],
                                        kw["margin"]).numpy()
+    got["inputs"] = (m, r0, r1, bsc)
 
     ref = {}
     bscp = np.pad(jff._border_scale_hw(HK, WK)[..., None],
@@ -135,6 +137,42 @@ def test_fused_box_update_flow_matches_pallas(case):
     got, ref = case
     assert got["flow"].shape == ref["flow"].shape == (B, 2, HP, WP)
     assert np.abs(got["flow"] - ref["flow"]).max() <= 1e-3
+
+
+# K4 at other (winsize, radius) than the module's grasp pair, on the same
+# level: M, r0, r1 and the border scale from the module's case
+K4_CASES = {"tabletennis": (4, 5)}
+
+
+@pytest.fixture(scope="module")
+def k4_other(case):
+    got, ref = {}, {}
+    m, r0, r1, bsc = case[0]["inputs"]
+    bscp = np.pad(jff._border_scale_hw(HK, WK)[..., None],
+                  [(0, HP - HK), (0, WP - WK), (0, 0)], mode="edge")
+    mj = _cm(m.float().numpy()).astype(jnp.bfloat16)
+    r0j, r1j = _cm(r0.numpy()), _cm(r1.numpy())
+    for name, (winsize, radius) in K4_CASES.items():
+        for emit in ("matrices", "flow"):
+            got[name, emit] = tff.fused_box_update(m, r0, r1, bsc, winsize, radius,
+                                                   emit).float().numpy()
+            with pltpu.force_tpu_interpret_mode():
+                ref[name, emit] = _bm(jff._fused_box_update_cm(
+                    mj, r0j, jnp.asarray(bscp), r1j, winsize, radius, emit, 32, 32,
+                    r1_off=(8 - radius - 1, 8)))
+    return got, ref
+
+
+@pytest.mark.parametrize("emit", ["matrices", "flow"])
+@pytest.mark.parametrize("name", sorted(K4_CASES))
+def test_fused_box_update_matches_pallas_at(k4_other, name, emit):
+    """K4 at tabletennis's winsize 4 / radius 5, held as at the grasp pair."""
+    got, ref = k4_other
+    if emit == "matrices":
+        _assert_bf16_close(got[name, emit], ref[name, emit])
+    else:
+        assert got[name, emit].shape == ref[name, emit].shape == (B, 2, HP, WP)
+        assert np.abs(got[name, emit] - ref[name, emit]).max() <= 1e-3
 
 
 @pytest.mark.parametrize("shape,taps", [((3, 37, 45), 5), ((2, 33, 61), 7),
