@@ -74,6 +74,31 @@ K1_CASES = {
                              [-5, 1000, -1000, 70], [-7, 200, -1000, 95]),
     "batch_1": ((1, H, W), torch.uint8, WIN, [31], [77]),
 }
+# K2 beyond the main path: name → (B, hk, wk, hp, wp, n, blur taps, margin);
+# n 1 and 5 (the template instances) and 7 (the generic kernel), no blur and
+# the 3-tap blur, margin (0, 0) and (8, 16), canvases larger than the image
+# on both axes, widths that are not a multiple of the 128-column strip (and
+# one that is not a multiple of 4), runs of 64 rows with a ragged end, B = 1
+K2_CASES = {
+    "n5_blur_margin": (4, 40, 50, 64, 96, 5, 3, (8, 16)),
+    "n5_plain": (4, 40, 50, 64, 64, 5, 0, (0, 0)),
+    "n1_blur_margin": (4, 37, 45, 64, 160, 1, 3, (8, 16)),
+    "n1_plain_ragged": (3, 70, 150, 96, 200, 1, 0, (0, 0)),
+    "n7_blur_margin": (2, 33, 41, 64, 64, 7, 3, (8, 16)),
+    "n7_plain": (2, 33, 41, 33, 41, 7, 0, (0, 0)),
+    "width_61": (2, 30, 37, 45, 61, 5, 3, (0, 0)),
+    "batch_1_level0": (1, WIN[0], WIN[1], WIN[0], WIN[1], 5, 3, (8, 16)),
+}
+# K3 (the fused route's first system, both M types, on a 40×50 level's
+# 64×64 canvas with its (8, 16) margin) and K5 (float32, on a 97×131 level
+# edge-padded by radius + 1): name → (route, M type, radius, B)
+K3_CASES = {
+    **{f"k3_{t}_r{r}": ("fused", dt, r, 3)
+       for t, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)) for r in (3, 5, 7)},
+    "k5_r3": ("level", torch.float32, 3, 2),
+    "k5_r8": ("level", torch.float32, 8, 2),
+    f"k5_r{tff.SEP_MAX_RADIUS}_b1": ("level", torch.float32, tff.SEP_MAX_RADIUS, 1),
+}
 # K4's (winsize, radius) checks: grasp, tabletennis, the fused route's limits,
 # the widest window the kernel takes
 K4_CASES = [(15, RADIUS), (4, 5), (17, 7), (63, 7)]
@@ -202,23 +227,6 @@ def ad_inputs(b: int, variant: int, dev):
                         (slice(1, 3), slice(1, 3)))
 
 
-def bf16_check(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """Kernel vs plain for bf16 M: ≥ 99 % bit-equal, and every element
-    within one bf16 ulp, or 1e-6 of its channel's largest magnitude where
-    the products cancel.  Returns max |Δ|."""
-    g, r = got.float(), ref.float()
-    equal = (got.view(torch.int16) == ref.view(torch.int16)).float().mean().item()
-    if equal < 0.99:
-        raise AssertionError(f"bf16 M: only {equal:.4%} bit-equal")
-    chmax = r.abs().amax(dim=(0, 2, 3), keepdim=True)
-    ulp = torch.where(r == 0, torch.zeros_like(r),
-                      2.0 ** (torch.floor(torch.log2(r.abs())) - 7))
-    tol = torch.maximum(ulp, 1e-6 * chmax)
-    if not ((g - r).abs() <= tol).all():
-        raise AssertionError("bf16 M: an element is beyond its tolerance")
-    return (g - r).abs().max().item()
-
-
 def f32_check(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
     """Kernel vs plain for f32 M: every element within 1e-6 of its
     channel's largest magnitude (both sum in one order, so 0 is expected).
@@ -239,6 +247,44 @@ def exact_check(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
     if err != 0:
         raise AssertionError(f"{name} differs from its plain version by {err}")
     return err
+
+
+def k2_case(name: str, dev):
+    """K2_CASES[name] as a kernel call and its plain version's call."""
+    b, hk, wk, hp, wp, n, taps, margin = K2_CASES[name]
+    rng = np.random.default_rng(len(name))
+    img = torch.from_numpy((rng.random((b, hk, wk)) * 255).astype(np.float32)).to(dev)
+    blur = _gaussian_blur_kernel(taps, 0.0) if taps else None
+    args = (img, n, 1.2, hp, wp, blur, margin)
+    return (lambda: tff.poly_expansion(*args)), (lambda: tff._poly_expansion_plain(*args))
+
+
+def k3_case(name: str, dev):
+    """K3_CASES[name] as a kernel call and its plain version's call: random
+    expansions and a flow reaching past the radius."""
+    route, dtype, radius, b = K3_CASES[name]
+    rng = np.random.default_rng(radius * 10 + b)
+    if route == "fused":
+        hk, wk, hp, wp = 40, 50, 64, 64
+        mr, mc = tff.R1_MARGIN
+    else:
+        hk, wk = hp, wp = 97, 131
+        mr = mc = radius + 1
+
+    def t(shape, scale):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(dev)
+
+    dx, dy = t((b, hk, wk), radius + 1.0), t((b, hk, wk), radius + 1.0)
+    r0 = t((b, 5, hp, wp), 50.0)
+    r1 = t((b, 5, hp + 2 * mr, wp + 2 * mc), 50.0)
+    bsc = tff.border_scale(hk, wk, str(dev))
+    if route == "fused":
+        args = (dx, dy, r0, r1, bsc, radius)
+        return (lambda: tff.update_matrices_sep(*args, out_dtype=dtype),
+                lambda: tff._update_matrices_sep_plain(*args, out_dtype=dtype))
+    args = (dx, dy, r0, r1, bsc, radius)
+    return (lambda: tff.update_matrices(*args, separable=True),
+            lambda: tff._update_matrices_plain(*args, separable=True))
 
 
 def flow_check(got, ref, name: str, tol: float = 1e-5) -> float:
@@ -436,9 +482,10 @@ def tree_adds(win: int) -> int:
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version on the card: K1–K4 at the main
     path's level-0 shapes (B = 16), the float32 forms of K3 and K4 there,
-    K1 also at ``K1_CASES`` and K4 at every ``K4_CASES`` (winsize, radius),
-    K5–K7 at the autodriving path's level-0 shapes (B = 4).  Returns the
-    max |Δ| of each."""
+    K1 also at ``K1_CASES``, K2 at ``K2_CASES``, K3 and K5 at ``K3_CASES``
+    and K4 at every ``K4_CASES`` (winsize, radius), K5–K7 at the
+    autodriving path's level-0 shapes (B = 4).  Every kernel but K6 and K7
+    must equal its plain version.  Returns the max |Δ| of each."""
     hk, wk = WIN
     errs = {}
     rng = np.random.default_rng(2)
@@ -467,27 +514,29 @@ def check_kernels(dev) -> dict:
     for blur, margin in ((None, (0, 0)), (ops["blur"], (0, 0)), (ops["blur"], tff.R1_MARGIN)):
         got = tff.poly_expansion(ops["img1"], 5, 1.2, hk, wk, blur, margin)
         ref = tff._poly_expansion_plain(ops["img1"], 5, 1.2, hk, wk, blur, margin)
-        k2 = max(k2, (got - ref).abs().max().item())
+        k2 = max(k2, exact_check(got, ref, f"K2 main path {margin}"))
+    for name in K2_CASES:
+        kernel, plain = k2_case(name, dev)
+        k2 = max(k2, exact_check(kernel(), plain(), f"K2 {name}"))
     errs["poly_expansion"] = k2
-    if not k2 <= 1e-4:
-        raise AssertionError(f"K2 differs from its plain version by {k2}")
-    emit({"phase": "check", "kernel": "poly_expansion", "max_abs_err": k2,
-          "tolerance": "1e-4 abs on 0-255 images"})
+    emit({"phase": "check", "kernel": "poly_expansion", "cases": ["main_path", *K2_CASES],
+          "max_abs_err": k2, "tolerance": 0})
 
     args = (ops["dx"], ops["dy"], ops["r0"], ops["r1"], ops["bsc"], RADIUS)
-    errs["update_matrices_sep"] = bf16_check(
-        tff.update_matrices_sep(*args), tff._update_matrices_sep_plain(*args))
-    emit({"phase": "check", "kernel": "update_matrices_sep",
-          "max_abs_err": errs["update_matrices_sep"],
-          "tolerance": ">=99% bf16 bit-equal; each element within 1 bf16 ulp "
-                       "or 1e-6 of its channel max"})
     f32 = dict(out_dtype=torch.float32)
-    errs["update_matrices_sep_f32"] = f32_check(
+    errs["update_matrices_sep"] = exact_check(
+        tff.update_matrices_sep(*args), tff._update_matrices_sep_plain(*args), "K3")
+    errs["update_matrices_sep_f32"] = exact_check(
         tff.update_matrices_sep(*args, **f32),
         tff._update_matrices_sep_plain(*args, **f32), "K3 f32")
-    emit({"phase": "check", "kernel": "update_matrices_sep_f32",
-          "max_abs_err": errs["update_matrices_sep_f32"],
-          "tolerance": "1e-6 of its channel max"})
+    for name, (route, dtype, radius, _) in K3_CASES.items():
+        key = ("update_matrices_sep_level" if route == "level" else
+               "update_matrices_sep" if dtype == torch.bfloat16 else "update_matrices_sep_f32")
+        kernel, plain = k3_case(name, dev)
+        errs[key] = max(errs.get(key, 0.0), exact_check(kernel(), plain(), f"K3/K5 {name}"))
+    for key in ("update_matrices_sep", "update_matrices_sep_f32"):
+        emit({"phase": "check", "kernel": key, "cases": ["main_path", *K3_CASES],
+              "max_abs_err": errs[key], "tolerance": 0})
 
     for key, m in (("fused_box_update", ops["m"]), ("fused_box_update_f32", ops["m32"])):
         for winsize, radius in K4_CASES:
@@ -502,16 +551,21 @@ def check_kernels(dev) -> dict:
     torch.cuda.synchronize()
     del ops
 
-    # K5–K7 at radius 3 and at radius 8 (beyond the TPU kernels' halo of 8)
+    # K5–K7 at the autodriving path's level 0, radius 3 and 8 (beyond the TPU
+    # kernels' halo of 8)
     for radius in (RADIUS, 8):
         ad = ad_level0_operands(AD_B_CHECK, dev, pad=radius + 1)
         uargs = (ad["dx"], ad["dy"], ad["r0"], ad["r1p"], ad["bsc"], radius)
-        for key, sep in (("update_matrices_sep_level", True), ("update_matrices", False)):
-            err = f32_check(tff.update_matrices(*uargs, separable=sep),
-                            tff._update_matrices_plain(*uargs, separable=sep), key)
-            errs[key] = max(errs.get(key, 0.0), err)
-            emit({"phase": "check", "kernel": key, "radius": radius, "max_abs_err": err,
-                  "tolerance": "1e-6 of its channel max"})
+        err = exact_check(tff.update_matrices(*uargs, separable=True),
+                          tff._update_matrices_plain(*uargs, separable=True), "K5")
+        errs["update_matrices_sep_level"] = max(errs["update_matrices_sep_level"], err)
+        emit({"phase": "check", "kernel": "update_matrices_sep_level", "radius": radius,
+              "max_abs_err": err, "tolerance": 0})
+        err = f32_check(tff.update_matrices(*uargs), tff._update_matrices_plain(*uargs),
+                        "update_matrices")
+        errs["update_matrices"] = max(errs.get("update_matrices", 0.0), err)
+        emit({"phase": "check", "kernel": "update_matrices", "radius": radius,
+              "max_abs_err": err, "tolerance": "1e-6 of its channel max"})
         del ad, uargs
     ad = ad_level0_operands(AD_B_CHECK, dev)
     for winsize in (ad["winsize"], 15, 21):  # 21: m = 10, beyond the TPU kernel's 8

@@ -1,11 +1,10 @@
-// Device code shared by the Farnebäck kernels: K3/K5
-// (update_matrices_sep.cu), K4 (fused_box_update.cu) and K7
-// (update_matrices.cu).  The two-pass separable warp of r1 and the build of
-// the five-channel system follow the operation order of the plain PyTorch
-// versions (nsof_tpu_torch/ops/farneback_fast.py::_warp_build and
-// ::_build_system).  Compiled with --fmad=false, every product and sum
-// rounds once, as there.  M is stored in bfloat16 or float32: load() and
-// store() convert.
+// Device code shared by the Farnebäck kernels: the system build at one
+// pixel (build_store), which K3/K5 (update_matrices_sep.cu), K4
+// (fused_box_update.cu) and K7 (update_matrices.cu) all end with, and its
+// small helpers.  It follows the operation order of the plain PyTorch
+// version (nsof_tpu_torch/ops/farneback_fast.py::_build_system).  Compiled
+// with --fmad=false, every product and sum rounds once, as there.  M is
+// stored in bfloat16 or float32: load() and store() convert.
 
 #pragma once
 
@@ -59,41 +58,6 @@ __device__ __forceinline__ void build_store(
   store(out + 2 * plane + pix, r5 * r5 + r6 * r6);
   store(out + 3 * plane + pix, r4 * r2 + r6 * r3);
   store(out + 4 * plane + pix, r6 * r2 + r5 * r3);
-}
-
-// Warp r1 at canvas pixel (y, x) in two separable passes and write M'(y, x).
-//   dx_row(ky): clamped dx of row y + ky (pass 1 interpolates each row at
-//               its own dx); dx, dy: clamped flow at (y, x);
-//   r1: this sample's [5, h1, w1] planes, canvas (0, 0) at (mr, mc);
-//   r0: this sample's [5, hp, wp] planes; sc: border scale at (y, x).
-template <typename DxRow, typename OutT>
-__device__ __forceinline__ void warp_build_store(
-    DxRow dx_row, float dx, float dy, const float* __restrict__ r1, int h1,
-    int w1, int mr, int mc, const float* __restrict__ r0, long long plane,
-    long long pix, float sc, int y, int x, int radius,
-    OutT* __restrict__ out) {
-  const long long plane1 = (long long)h1 * w1;
-  float acc[5];
-  for (int ky = -radius; ky <= radius + 1; ++ky) {
-    const float dxr = dx_row(ky);
-    const float* row = r1 + (long long)(y + ky + mr) * w1 + (x + mc);
-    float t[5];
-    for (int kx = -radius; kx <= radius + 1; ++kx) {
-      const float wx = hat(dxr, kx);
-#pragma unroll
-      for (int c = 0; c < 5; ++c) {
-        const float v = __ldg(row + c * plane1 + kx) * wx;
-        t[c] = (kx == -radius) ? v : t[c] + v;
-      }
-    }
-    const float wy = hat(dy, ky);
-#pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      const float v = t[c] * wy;
-      acc[c] = (ky == -radius) ? v : acc[c] + v;
-    }
-  }
-  build_store(acc, r0, plane, pix, dx, dy, sc, out);
 }
 
 }  // namespace nsof

@@ -182,11 +182,19 @@ def _poly_expansion_plain(img, n, sigma, hp, wp, blur=None, margin=(0, 0)):
 
 
 @functools.lru_cache(maxsize=64)
-def _poly_coef_tensor(n, sigma, blur, device):
+def _poly_coef_np(n, sigma, blur):
+    """K2's coefficients, g, x·g, x²·g, the blur and the four scales, as one
+    float32 array (the generic kernel reads them on the device, the
+    template instances take them from the host as kernel parameters)."""
     g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_coeffs(n, sigma)
     vals = np.concatenate([g, xg, xxg, np.asarray(blur or (), np.float32),
                            np.asarray([ig11, ig03, ig33, ig55], np.float32)])
-    return torch.from_numpy(vals.astype(np.float32)).to(device)
+    return np.ascontiguousarray(vals, np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _poly_coef_tensor(n, sigma, blur, device):
+    return torch.from_numpy(_poly_coef_np(n, sigma, blur)).to(device)
 
 
 def _poly_expansion_cuda(img, n, sigma, hp, wp, blur, margin):
@@ -195,12 +203,13 @@ def _poly_expansion_cuda(img, n, sigma, hp, wp, blur, margin):
     _check(img, "img", torch.float32, (b, hk, wk), img.device)
     blur_t = None if blur is None else tuple(float(v) for v in blur)
     coef = _poly_coef_tensor(n, float(sigma), blur_t, str(img.device))
+    coef_host = _poly_coef_np(n, float(sigma), blur_t)
     n_blur = 0 if blur is None else len(blur)
     ho, wo = hp + 2 * mr, wp + 2 * mc
     out = torch.empty((b, 5, ho, wo), dtype=torch.float32, device=img.device)
-    fn = _build.launcher("poly_expansion", 3, 9)
+    fn = _build.launcher("poly_expansion", 4, 9)
     _build.check(fn(
-        img.data_ptr(), coef.data_ptr(), out.data_ptr(),
+        img.data_ptr(), coef.data_ptr(), coef_host.ctypes.data, out.data_ptr(),
         b, hk, wk, n, n_blur, ho, wo, mr, mc, _stream(img),
     ), "poly_expansion")
     _build.LAUNCHES["poly_expansion"] += 1
@@ -282,6 +291,9 @@ def _check_warp_operands(r0, r1, bsc, radius, margin):
 # ── K3: the first system of a level ───────────────────────────────────────
 
 M_DTYPES = (torch.bfloat16, torch.float32)
+# the widest radius K3/K5's CUDA kernel takes: its tile of r1, pass 1's
+# result and the flow must fit a block's shared memory
+SEP_MAX_RADIUS = 37
 
 
 def _update_matrices_sep_plain(dx, dy, r0, r1, bsc, radius, margin=R1_MARGIN,
@@ -327,6 +339,8 @@ def update_matrices_sep(dx, dy, r0, r1, bsc, radius, margin=R1_MARGIN,
     ``[hk, wk]``.  Counterpart of ``_update_matrices_sep_cm``; the warp is
     the TPU kernel's two-pass one (pass 1 horizontal at each row's own dx,
     pass 2 vertical at the output pixel's dy), not a true 2-D bilinear warp.
+    The CUDA kernel takes radius ≤ 37 (its tile of r1 must fit a block's
+    shared memory) and raises beyond.
     """
     if out_dtype not in M_DTYPES:
         raise ValueError(f"out_dtype must be one of {M_DTYPES}, got {out_dtype}")
@@ -589,8 +603,10 @@ def update_matrices(dx, dy, r0, r1p, bsc, radius, separable=False):
     ``pad ≥ radius + 1`` on every side, ``bsc`` the ``[H, W]`` border
     scale.  Counterpart of ``update_matrices_pallas``: K5 is the two-pass
     separable warp (K3's kernel, in float32, on the level's own extent), K7
-    the (2r+2)²-tap warp, bit for bit ``update_matrices_fast``.  Neither
-    caps the radius (the TPU kernels' halo of 8 allows r ≤ 7).
+    the (2r+2)²-tap warp, bit for bit ``update_matrices_fast``.  K5's CUDA
+    kernel takes radius ≤ 37 (its tile of r1 must fit a block's shared
+    memory) and raises beyond; K7's takes any radius (the TPU kernels' halo
+    of 8 allows r ≤ 7).
     """
     if not r0.is_cuda:
         return _update_matrices_plain(dx, dy, r0, r1p, bsc, radius, separable)

@@ -1,13 +1,18 @@
-"""K1 (window crop) and K4 (fused box-solve + warp + rebuild) on the card
-against their plain versions, exactly.
+"""K1 (window crop), K2 (polynomial expansion), K3/K5 (separable warp +
+system build) and K4 (fused box-solve + warp + rebuild) on the card against
+their plain versions, exactly.
 
 The cases are ``chip_smoke.py``'s, which checks them in its own run too.
 K1: source origins ≡ 0, 1 and 15 (mod 16), window widths that are not a
 multiple of 16, 1-, 2-, 4- and 12-byte elements (uint8, bf16, f32 and f32
-with three trailing channels), negative and clamped origins, B = 1.  K4:
-both emits and both M types at the grasp (15, 3), tabletennis (4, 5),
-fused-route limit (17, 7) and widest (63, 7) (winsize, radius), on a canvas
-with slack rows and columns.
+with three trailing channels), negative and clamped origins, B = 1.  K2:
+n 1, 5 and 7, with and without the 3-tap blur, margins (0, 0) and (8, 16),
+canvases larger than the image, ragged strips and runs, B = 1.  K3: both M
+types at radius 3, 5 and 7 on a canvas with slack rows and columns; K5 at
+radius 3, 8 and its widest on a 97×131 level.  K4: both emits and both M
+types at the grasp (15, 3), tabletennis (4, 5), fused-route limit (17, 7)
+and widest (63, 7) (winsize, radius), on a canvas with slack rows and
+columns.
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (the card's machine has no jax, which
@@ -18,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K1_CASES, K4_CASES
+from chip_smoke import K1_CASES, K2_CASES, K3_CASES, K4_CASES, k2_case, k3_case
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 
@@ -72,3 +77,40 @@ def test_fused_box_update_kernel_matches_plain(cuda_device, winsize, radius, emi
     ref = tff._fused_box_update_plain(m, r0, r1, bsc, winsize, radius, emit)
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert (got.float() - ref.float()).abs().max().item() == 0
+
+
+def _assert_exact(got, ref):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert (got.float() - ref.float()).abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K2_CASES))
+def test_poly_expansion_kernel_matches_plain(cuda_device, name):
+    kernel, plain = k2_case(name, cuda_device)
+    got = kernel()
+    torch.cuda.synchronize()
+    _assert_exact(got, plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K3_CASES))
+def test_update_matrices_sep_kernel_matches_plain(cuda_device, name):
+    kernel, plain = k3_case(name, cuda_device)
+    got = kernel()
+    torch.cuda.synchronize()
+    _assert_exact(got, plain())
+
+
+@pytest.mark.cuda
+def test_update_matrices_sep_refuses_wider_radius(cuda_device):
+    """Past its widest radius the K5 launcher refuses and the wrapper
+    raises; nothing falls back to the plain version."""
+    r = tff.SEP_MAX_RADIUS + 1
+    b, h, w = 1, 40, 50
+    z = torch.zeros((b, h, w), device=cuda_device)
+    r0 = torch.zeros((b, 5, h, w), device=cuda_device)
+    r1p = torch.zeros((b, 5, h + 2 * r + 2, w + 2 * r + 2), device=cuda_device)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        tff.update_matrices(z, z, r0, r1p, tff.border_scale(h, w, str(cuda_device)), r,
+                            separable=True)
