@@ -16,7 +16,8 @@ on the card, then drives three paths of ``seg_batch_fast``:
 Each path's launch counts are zeroed just before it and read just after;
 it must go through exactly its kernels, make no host synchronisation and
 agree with the plain route, and it is timed.  Last, each kernel is timed at
-its path's level-0 shapes beside its bound and its plain version.
+its path's level-0 shapes beside its bound and its plain version (K7 also
+at radius 8).
 
 Each phase prints one JSON line.  The line before the last is the card's
 name and power limit as ``nvidia-smi`` reports them, the one before that
@@ -99,6 +100,9 @@ K3_CASES = {
     "k5_r8": ("level", torch.float32, 8, 2),
     f"k5_r{tff.SEP_MAX_RADIUS}_b1": ("level", torch.float32, tff.SEP_MAX_RADIUS, 1),
 }
+# K7 on a ragged 97×131 level edge-padded by radius + 1, with k7_flow's
+# flows: name → (radius, B)
+K7_CASES = {"k7_r1": (1, 2), "k7_r3": (3, 2), "k7_r8": (8, 2), "k7_r37_b1": (37, 1)}
 # K4's (winsize, radius) checks: grasp, tabletennis, the fused route's limits,
 # the widest window the kernel takes
 K4_CASES = [(15, RADIUS), (4, 5), (17, 7), (63, 7)]
@@ -227,16 +231,6 @@ def ad_inputs(b: int, variant: int, dev):
                         (slice(1, 3), slice(1, 3)))
 
 
-def f32_check(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
-    """Kernel vs plain for f32 M: every element within 1e-6 of its
-    channel's largest magnitude (both sum in one order, so 0 is expected).
-    Returns max |Δ|."""
-    chmax = ref.abs().amax(dim=(0, 2, 3), keepdim=True)
-    if not ((got - ref).abs() <= 1e-6 * chmax).all():
-        raise AssertionError(f"{name}: an element is beyond 1e-6 of its channel max")
-    return (got - ref).abs().max().item()
-
-
 def exact_check(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
     """Kernel vs plain, required equal (built with --fmad=false, summed in
     one order).  Returns max |Δ|, 0."""
@@ -285,6 +279,37 @@ def k3_case(name: str, dev):
     args = (dx, dy, r0, r1, bsc, radius)
     return (lambda: tff.update_matrices(*args, separable=True),
             lambda: tff._update_matrices_plain(*args, separable=True))
+
+
+def k7_flow(shape, radius: int, rng) -> np.ndarray:
+    """One flow plane for K7's checks: half its elements drawn from the
+    values where a sum of four taps could part from the full sum (integers
+    inside and beyond ±r, ±r exactly, ±0, ±1e-10, ±1e-30, ±1e-45, one ulp
+    either side of each integer, far beyond the radius), half uniform over
+    [-r - 2, r + 2]."""
+    ks = np.arange(-radius - 2, radius + 3, dtype=np.float32)
+    tiny = np.array([1e-10, 1e-30, 1e-45], np.float32)
+    inf = np.float32(np.inf)
+    special = np.concatenate([
+        ks, np.nextafter(ks, inf), np.nextafter(ks, -inf), tiny, -tiny,
+        np.array([0.0, -0.0, radius + 0.5, -radius - 0.5, 1e3, -1e3], np.float32),
+    ])
+    rand = rng.uniform(-radius - 2, radius + 2, size=shape).astype(np.float32)
+    return np.where(rng.random(shape) < 0.5, rng.choice(special, size=shape), rand)
+
+
+def k7_case(name: str, dev):
+    """K7_CASES[name] as a kernel call and its plain version's call: k7_flow
+    flows, random expansions."""
+    radius, b = K7_CASES[name]
+    h, w, e = 97, 131, radius + 1
+    rng = np.random.default_rng(radius * 10 + b)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    dx, dy = t(k7_flow((b, h, w), radius, rng)), t(k7_flow((b, h, w), radius, rng))
+    r0 = t(rng.normal(size=(b, 5, h, w)) * 50.0)
+    r1p = t(rng.normal(size=(b, 5, h + 2 * e, w + 2 * e)) * 50.0)
+    args = (dx, dy, r0, r1p, tff.border_scale(h, w, str(dev)), radius)
+    return (lambda: tff.update_matrices(*args)), (lambda: tff._update_matrices_plain(*args))
 
 
 def flow_check(got, ref, name: str, tol: float = 1e-5) -> float:
@@ -482,10 +507,10 @@ def tree_adds(win: int) -> int:
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version on the card: K1–K4 at the main
     path's level-0 shapes (B = 16), the float32 forms of K3 and K4 there,
-    K1 also at ``K1_CASES``, K2 at ``K2_CASES``, K3 and K5 at ``K3_CASES``
-    and K4 at every ``K4_CASES`` (winsize, radius), K5–K7 at the
-    autodriving path's level-0 shapes (B = 4).  Every kernel but K6 and K7
-    must equal its plain version.  Returns the max |Δ| of each."""
+    K1 also at ``K1_CASES``, K2 at ``K2_CASES``, K3 and K5 at ``K3_CASES``,
+    K4 at every ``K4_CASES`` (winsize, radius) and K7 at ``K7_CASES``,
+    K5–K7 at the autodriving path's level-0 shapes (B = 4).  Every kernel
+    but K6 must equal its plain version.  Returns the max |Δ| of each."""
     hk, wk = WIN
     errs = {}
     rng = np.random.default_rng(2)
@@ -561,12 +586,18 @@ def check_kernels(dev) -> dict:
         errs["update_matrices_sep_level"] = max(errs["update_matrices_sep_level"], err)
         emit({"phase": "check", "kernel": "update_matrices_sep_level", "radius": radius,
               "max_abs_err": err, "tolerance": 0})
-        err = f32_check(tff.update_matrices(*uargs), tff._update_matrices_plain(*uargs),
-                        "update_matrices")
+        err = exact_check(tff.update_matrices(*uargs), tff._update_matrices_plain(*uargs),
+                          "K7")
         errs["update_matrices"] = max(errs.get("update_matrices", 0.0), err)
         emit({"phase": "check", "kernel": "update_matrices", "radius": radius,
-              "max_abs_err": err, "tolerance": "1e-6 of its channel max"})
+              "max_abs_err": err, "tolerance": 0})
         del ad, uargs
+    for name in K7_CASES:
+        kernel, plain = k7_case(name, dev)
+        errs["update_matrices"] = max(errs["update_matrices"],
+                                      exact_check(kernel(), plain(), f"K7 {name}"))
+    emit({"phase": "check", "kernel": "update_matrices", "cases": list(K7_CASES),
+          "max_abs_err": errs["update_matrices"], "tolerance": 0})
     ad = ad_level0_operands(AD_B_CHECK, dev)
     for winsize in (ad["winsize"], 15, 21):  # 21: m = 10, beyond the TPU kernel's 8
         err = flow_check(tff.box_solve(ad["m"], winsize),
@@ -686,18 +717,34 @@ def kernel_times(launches: dict, errs: dict, dev, prev) -> list[dict]:
     ad = ad_level0_operands(b, dev)
     _, _, h, w = ad["r0"].shape
     px = b * h * w
-    r1_read = b * 5 * (h + 2 * RADIUS + 1) * (w + 2 * RADIUS + 1) * 4
-    upd_bytes = b * h * w * 4 * 2 + h * w * 4 + px * 20 + r1_read + px * 20
+
+    def upd_bytes(radius):  # dx, dy, bsc, r0, r1 and its ring of r and r + 1, M
+        return px * 4 * 2 + h * w * 4 + px * 20 + b * 5 * (
+            h + 2 * radius + 1) * (w + 2 * radius + 1) * 4 + px * 20
+
     taps = 2 * RADIUS + 2
     uargs = (ad["dx"], ad["dy"], ad["r0"], ad["r1p"], ad["bsc"], RADIUS)
     sep_ops = taps * 14 * (1 + 2 * e / h) + taps * 14 + 34
-    full_ops = taps * taps * 11 + 2 * taps * 4 + 34
-    for key, sep, ops_px in (("update_matrices_sep_level", True, sep_ops),
-                             ("update_matrices", False, full_ops)):
-        entry(key,
-              lambda: tff.update_matrices(*uargs, separable=sep),
-              lambda: tff._update_matrices_plain(*uargs, separable=sep), None,
-              upd_bytes, px * ops_px, b)
+    # K7 sums the four taps whose hat weights can be non-zero: each a weight
+    # product, 5 products and 5 sums; 4 hat weights of 4 operations; the build
+    full_ops = 4 * 11 + 4 * 4 + 34
+    entry("update_matrices_sep_level",
+          lambda: tff.update_matrices(*uargs, separable=True),
+          lambda: tff._update_matrices_plain(*uargs, separable=True), None,
+          upd_bytes(RADIUS), px * sep_ops, b)
+    # K7 also at radius 8, where the full sum has 324 taps: r1 edge-padded by 9
+    r1p8 = tff._extend(ad["r1p"], 5, 5, 5, 5)
+    uargs8 = (*uargs[:3], r1p8, uargs[4], 8)
+    bms8, by8 = bound_ms(upd_bytes(8), px * full_ops)
+    radius_8 = {"ms": time_ms(lambda: tff.update_matrices(*uargs8)),
+                "plain_ms": time_ms(lambda: tff._update_matrices_plain(*uargs8),
+                                    iters=2, warm=1),
+                "bound_ms": bms8, "bound_by": by8}
+    del r1p8, uargs8
+    entry("update_matrices",
+          lambda: tff.update_matrices(*uargs),
+          lambda: tff._update_matrices_plain(*uargs), None,
+          upd_bytes(RADIUS), px * full_ops, b, radius_8=radius_8)
     win = 2 * (ad["winsize"] // 2) + 1
     entry("box_solve",
           lambda: tff.box_solve(ad["m"], ad["winsize"]),

@@ -603,10 +603,13 @@ def update_matrices(dx, dy, r0, r1p, bsc, radius, separable=False):
     ``pad ≥ radius + 1`` on every side, ``bsc`` the ``[H, W]`` border
     scale.  Counterpart of ``update_matrices_pallas``: K5 is the two-pass
     separable warp (K3's kernel, in float32, on the level's own extent), K7
-    the (2r+2)²-tap warp, bit for bit ``update_matrices_fast``.  K5's CUDA
-    kernel takes radius ≤ 37 (its tile of r1 must fit a block's shared
-    memory) and raises beyond; K7's takes any radius (the TPU kernels' halo
-    of 8 allows r ≤ 7).
+    the (2r+2)²-tap warp, bit for bit ``update_matrices_fast``
+    (:func:`_warp_full`).  K7's CUDA kernel sums only the four taps whose
+    hat weights can be non-zero, at floor(d) and floor(d) + 1 on each axis:
+    every other tap adds ±0, so the sum is the same bit for bit
+    (``csrc/update_matrices.cu`` says why).  K5's CUDA kernel takes radius
+    ≤ 37 (its tile of r1 must fit a block's shared memory) and raises
+    beyond; K7's takes any radius (the TPU kernels' halo of 8 allows r ≤ 7).
     """
     if not r0.is_cuda:
         return _update_matrices_plain(dx, dy, r0, r1p, bsc, radius, separable)

@@ -24,6 +24,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from chip_smoke import k7_flow
 from nsof_tpu.ops import farneback_fast as jff
 from nsof_tpu_torch.ops import farneback_fast as tff
 
@@ -107,6 +108,61 @@ def test_update_matrices_matches_pallas_and_fast(level, radius):
     got = _port_update(level, radius, False)
     _assert_m_close(got, ref)
     np.testing.assert_array_equal(got, fast)
+
+
+def _warp_four_taps(dx, dy, r0, r1p, bsc, radius):
+    """K7's sum as its CUDA kernel takes it: per pixel only the taps at
+    ky0 = floor(dy), ky0 + 1 and kx0 = floor(dx), kx0 + 1 of the clamped
+    flow, gathered from the padded r1 and added from 0 in the order (ky0,
+    kx0), (ky0, kx0 + 1), (ky0 + 1, kx0), (ky0 + 1, kx0 + 1)."""
+    b, _, h, w = r0.shape
+    pad = (r1p.shape[-1] - w) // 2
+    w1 = w + 2 * pad
+    dxc, dyc = dx.clamp(-radius, radius), dy.clamp(-radius, radius)
+    ky0, kx0 = dyc.floor(), dxc.floor()
+    rows = torch.arange(h)[:, None] + pad + ky0.long()
+    cols = torch.arange(w) + pad + kx0.long()
+    flat = r1p.reshape(b, 5, -1)
+    acc = torch.zeros_like(r0)
+    for a in (0, 1):
+        wy = tff._hat(dyc, ky0 + a)
+        for c in (0, 1):
+            idx = ((rows + a) * w1 + cols + c).reshape(b, 1, -1).expand(b, 5, -1)
+            tap = flat.gather(2, idx).reshape(b, 5, h, w)
+            acc = acc + tap * (wy * tff._hat(dxc, kx0 + c))[:, None]
+    return tff._build_system(r0, acc, dxc, dyc, bsc, torch.float32)
+
+
+@pytest.mark.parametrize("radius", [1, 3, 8])
+def test_four_tap_warp_matches_full_sum(radius):
+    """The four-tap sum of K7's kernel equals the (2r+2)²-tap sum bit for
+    bit, both the plain version's and update_matrices_fast's, at flows where
+    they could part (chip_smoke.k7_flow: integers, ±r and beyond, ±0, tiny
+    values, one ulp either side of each integer)."""
+    b, h, w, e = 4, 37, 53, radius + 1
+    rng = np.random.default_rng(radius)
+    dx, dy = k7_flow((b, h, w), radius, rng), k7_flow((b, h, w), radius, rng)
+    r0 = (rng.normal(size=(b, 5, h, w)) * 50.0).astype(np.float32)
+    r1 = (rng.normal(size=(b, 5, h, w)) * 50.0).astype(np.float32)
+    args = (torch.from_numpy(dx), torch.from_numpy(dy), torch.from_numpy(r0),
+            tff._extend(torch.from_numpy(r1), e, e, e, e), tff.border_scale(h, w, "cpu"),
+            radius)
+    got = _warp_four_taps(*args).numpy()
+    flow = jnp.stack([_hwb(dx), _hwb(dy)], axis=-1)
+    fast = _from_hwbc(jff.update_matrices_fast(_to_hwbc(r0), _to_hwbc(r1), flow, radius))
+    for ref in (tff._warp_full(*args).numpy(), fast):
+        np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+def test_update_matrices_refuses_short_pad():
+    """K5 and K7 need r1 padded by radius + 1: one less raises."""
+    b, h, w, r = 1, 9, 11, 3
+    z = torch.zeros((b, h, w))
+    r1p = torch.zeros((b, 5, h + 2 * r, w + 2 * r))
+    for separable in (False, True):
+        with pytest.raises(ValueError, match="radius"):
+            tff.update_matrices(z, z, torch.zeros((b, 5, h, w)), r1p,
+                                tff.border_scale(h, w, "cpu"), r, separable=separable)
 
 
 @pytest.mark.parametrize("winsize", [3, 15, 21])  # 21: m = 10 > the kernel's 8

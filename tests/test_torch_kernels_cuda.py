@@ -1,6 +1,6 @@
 """K1 (window crop), K2 (polynomial expansion), K3/K5 (separable warp +
-system build) and K4 (fused box-solve + warp + rebuild) on the card against
-their plain versions, exactly.
+system build), K4 (fused box-solve + warp + rebuild) and K7 (four-tap warp
++ system build) on the card against their plain versions, exactly.
 
 The cases are ``chip_smoke.py``'s, which checks them in its own run too.
 K1: source origins ≡ 0, 1 and 15 (mod 16), window widths that are not a
@@ -12,7 +12,9 @@ types at radius 3, 5 and 7 on a canvas with slack rows and columns; K5 at
 radius 3, 8 and its widest on a 97×131 level.  K4: both emits and both M
 types at the grasp (15, 3), tabletennis (4, 5), fused-route limit (17, 7)
 and widest (63, 7) (winsize, radius), on a canvas with slack rows and
-columns.
+columns.  K7: radius 1, 3, 8 and 37 on a 97×131 level, B = 2 and 1, with
+flows at integers, ±r and beyond, ±0, tiny values and one ulp either side
+of each integer.
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (the card's machine has no jax, which
@@ -23,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K1_CASES, K2_CASES, K3_CASES, K4_CASES, k2_case, k3_case
+from chip_smoke import (K1_CASES, K2_CASES, K3_CASES, K4_CASES, K7_CASES, k2_case, k3_case,
+                        k7_case)
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 
@@ -97,6 +100,15 @@ def test_poly_expansion_kernel_matches_plain(cuda_device, name):
 @pytest.mark.parametrize("name", sorted(K3_CASES))
 def test_update_matrices_sep_kernel_matches_plain(cuda_device, name):
     kernel, plain = k3_case(name, cuda_device)
+    got = kernel()
+    torch.cuda.synchronize()
+    _assert_exact(got, plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K7_CASES))
+def test_update_matrices_kernel_matches_plain(cuda_device, name):
+    kernel, plain = k7_case(name, cuda_device)
     got = kernel()
     torch.cuda.synchronize()
     _assert_exact(got, plain())
