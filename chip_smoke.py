@@ -15,9 +15,23 @@ on the card, then drives three paths of ``seg_batch_fast``:
 
 Each path's launch counts are zeroed just before it and read just after;
 it must go through exactly its kernels, make no host synchronisation and
-agree with the plain route, and it is timed.  Last, each kernel is timed at
-its path's level-0 shapes beside its bound and its plain version (K7 also
-at radius 8).
+agree with the plain route, and it is timed.  Then, on the same 640×480
+grasp workload:
+
+- ``tracking_batch_fast`` at B = 64 (``'fused'``: K1–K4), its boxes equal
+  to the plain route's, at most 32 host synchronisations (the labelling's
+  convergence checks);
+- ``prediction_batch_fast`` at B = 64 with a BGR next frame, its
+  prediction equal to the plain route's bit for bit, no host
+  synchronisation, and its SSIM against the true next-but-one frame;
+- the dual path: the exact per-stage programs of the segmentation,
+  tracking and prediction pipelines (``seg_stages``, ``tracking_stages``,
+  ``prediction_stages``) on one frame pair as the reference's runner calls
+  them, each stage timed, and the ROI path's speed-up over the full frame;
+  the exact path launches no kernel.
+
+Last, each kernel is timed at its path's level-0 shapes beside its bound
+and its plain version (K7 also at radius 8).
 
 Each phase prints one JSON line.  The line before the last is the card's
 name and power limit as ``nvidia-smi`` reports them, the one before that
@@ -46,7 +60,10 @@ from nsof_tpu_torch.config import DATASETS
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 from nsof_tpu_torch.ops.farneback import _gaussian_blur_kernel, _poly_exp_coeffs
-from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast
+from nsof_tpu_torch.pipelines.prediction import (prediction_batch_fast, prediction_ssim,
+                                                 prediction_stages)
+from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast, seg_stages
+from nsof_tpu_torch.pipelines.tracking import tracking_batch_fast, tracking_stages
 
 H, W, MEMSIZE = 480, 640, 80
 WIN = (256, 384)
@@ -113,6 +130,12 @@ AD_LAUNCHES = {
     "auto": {"crop_windows": 2, "update_matrices_sep_level": 12, "box_solve": 12},
     "pallas": {"crop_windows": 2, "update_matrices": 12, "box_solve": 12},
 }
+# the tracking and prediction paths: batch, and the labelling's most host
+# synchronisations a call (one every 8 of at most 256 sweeps)
+B_HEADS = 64
+MAX_TRACKING_SYNCS = 32
+# each timed call: median of TIME_N after TIME_WARM warm-up calls
+TIME_WARM, TIME_N = 3, 10
 # launch key → (source, TPU kernel it replaces, CUDA kernel name in a trace)
 SOURCES = {
     "crop_windows": ("nsof_tpu_torch/csrc/crop_windows.cu",
@@ -202,12 +225,17 @@ def bench_cfg():
     return dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, memsize=MEMSIZE))
 
 
+def texture(h: int, w: int) -> np.ndarray:
+    """bench.py's random texture, with a 32-pixel margin on every side."""
+    rng = np.random.default_rng(0)
+    return rng.random((h + 64, w + 64)).astype(np.float32) * 255
+
+
 def frame_inputs(b: int, variant: int, dev, h: int, w: int, memsize: int,
                  cells: tuple[slice, slice]):
     """bench.py's inputs (bench.py:72-92) at h×w: a random texture moved
     by (2, -1) px, and a state map with the ``cells`` block active."""
-    rng = np.random.default_rng(0)
-    base = rng.random((h + 64, w + 64)).astype(np.float32) * 255
+    base = texture(h, w)
     v = variant
     prev = np.broadcast_to(base[16 + v : 16 + v + h, 16 : 16 + w], (b, h, w))
     nxt = np.broadcast_to(base[18 + v : 18 + v + h, 15 : 15 + w], (b, h, w))
@@ -323,7 +351,7 @@ def flow_check(got, ref, name: str, tol: float = 1e-5) -> float:
 def plain_route():
     """Swap every kernel wrapper for its plain version (the reference run
     of a path on the card)."""
-    names = {"crop_windows_batch": (troi, "_crop_windows_plain"),
+    names = {"crop_windows_batch": (troi, "crop_windows"),
              "poly_expansion": (tff, "_poly_expansion_plain"),
              "update_matrices_sep": (tff, "_update_matrices_sep_plain"),
              "fused_box_update": (tff, "_fused_box_update_plain"),
@@ -392,22 +420,22 @@ def ad_level0_operands(b: int, dev, pad: int = RADIUS + 1):
     return dict(dx=dx, dy=dy, r0=r0, r1p=r1p, bsc=bsc, m=m, winsize=fb.winsize)
 
 
-def where_the_time_goes(cfg, mem, prev, nxt, ms_batch: float, batch: int,
-                        keys, **kwargs) -> dict:
-    """Device time of one call of a path by kernel name (torch.profiler),
-    the port's kernels on it (launch ``keys``) against everything else, and
-    the device's idle share of the timed batch."""
+def device_trace(call, ms_batch: float, batch: int, keys, **meta) -> dict:
+    """Device time of one call of ``call`` by kernel name (torch.profiler,
+    after one untraced call), the port's kernels on it (launch ``keys``)
+    against everything else, the kernels launched, and the device's idle
+    share of the timed call (``ms_batch``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    seg_batch_fast(mem, prev, nxt, cfg, **kwargs)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        seg_batch_fast(mem, prev, nxt, cfg, **kwargs)
+        call()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
-        return {"phase": "device_trace", "busy_ms": "not measured",
+        return {"phase": "device_trace", **meta, "busy_ms": "not measured",
                 "reason": "the profiler recorded no device events"}
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     ours = {k: 0.0 for k in keys}
@@ -417,12 +445,20 @@ def where_the_time_goes(cfg, mem, prev, nxt, ms_batch: float, batch: int,
                 ours[k] += e.self_device_time_total / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:15]
     return {
-        "phase": "device_trace", "path": cfg.name, "kwargs": kwargs, "batch": batch,
+        "phase": "device_trace", **meta, "batch": batch,
         "busy_ms": busy, "idle_share_of_timed_batch": 1.0 - busy / ms_batch,
         "kernels_ms": ours, "other_ms": busy - sum(ours.values()),
+        "device_launches": sum(e.count for e in kern),
         "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                  "count": e.count} for e in top],
     }
+
+
+def where_the_time_goes(cfg, mem, prev, nxt, ms_batch: float, batch: int,
+                        keys, **kwargs) -> dict:
+    """:func:`device_trace` of one call of a path of ``seg_batch_fast``."""
+    return device_trace(lambda: seg_batch_fast(mem, prev, nxt, cfg, **kwargs),
+                        ms_batch, batch, keys, path=cfg.name, kwargs=kwargs)
 
 
 def drive_path(cfg, inputs, batch: int, expected: dict, dev, trace: bool,
@@ -498,6 +534,207 @@ def drive_path(cfg, inputs, batch: int, expected: dict, dev, trace: bool,
     return launches, ms_batch
 
 
+def bgr(gray: torch.Tensor) -> torch.Tensor:
+    """A uint8 BGR frame ``[..., 3]`` from a gray one: three channels
+    mixed from it."""
+    g = gray.to(torch.int32)
+    return torch.stack([g, 255 - g, (3 * g + 17) % 256], dim=-1).to(torch.uint8)
+
+
+def heads_frames(b: int, variant: int, dev):
+    """The prediction path's BGR frames, both moved on by (2, -1) px from
+    bench_inputs' next frame: the next frame, and the true frame after it."""
+    base = texture(H, W)
+    v = variant
+    nxt = np.broadcast_to(base[18 + v : 18 + v + H, 15 : 15 + W], (b, H, W))
+    fut = np.broadcast_to(base[20 + v : 20 + v + H, 14 : 14 + W], (b, H, W))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a.astype(np.uint8))).to(dev)  # noqa: E731
+    return bgr(t(nxt)), bgr(t(fut))
+
+
+def median_ms(call, variants) -> tuple[float, list[float]]:
+    """Device time of ``call(*args)`` by CUDA events, one call at a time
+    with the ``variants`` in turn: the median of TIME_N after TIME_WARM
+    warm-up calls, and the samples."""
+    samples = []
+    for i in range(TIME_WARM + TIME_N):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(*variants[i % len(variants)])
+        stop.record()
+        torch.cuda.synchronize()
+        if i >= TIME_WARM:
+            samples.append(start.elapsed_time(stop))
+    return float(np.median(samples)), samples
+
+
+def launched_by(call) -> tuple[dict, object]:
+    """The launch counts of one call of ``call``, zeroed just before it and
+    read just after, and its result."""
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = call()
+    torch.cuda.synchronize()
+    return {k: v for k, v in _build.LAUNCHES.items() if v}, out
+
+
+def against_plain(call, out: dict, keys) -> None:
+    """``call`` again with every kernel wrapper on its plain version: it
+    must launch nothing and give ``out``'s ``keys`` bit for bit."""
+    counts = dict(_build.LAUNCHES)
+    with plain_route():
+        ref = call()
+    torch.cuda.synchronize()
+    if _build.LAUNCHES != counts:
+        raise AssertionError("the plain route launched a kernel")
+    for key in keys:
+        if not torch.equal(out[key], ref[key]):
+            raise AssertionError(f"{key} differs from the plain route's")
+
+
+def drive_tracking(dev) -> dict:
+    """``tracking_batch_fast`` on the main path's workload at B_HEADS in
+    'fused': exactly the main path's kernels, the plain route's boxes, at
+    most MAX_TRACKING_SYNCS host synchronisations, a box found on every
+    sample; then timed."""
+    cfg = bench_cfg()
+    mem, prev, nxt = bench_inputs(B_HEADS, 0, dev)
+
+    def call(m=mem, p=prev, n=nxt):
+        return tracking_batch_fast(m, p, n, cfg, kernel_mode="fused")
+
+    launches, out = launched_by(call)
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"tracking: launches {launches} != {EXPECTED_LAUNCHES}")
+    against_plain(call, out, ("boxes", "valid", "areas", "box", "any_active"))
+    n_valid = out["valid"].sum(dim=1)
+    if not (out["any_active"].all() and (n_valid > 0).all()):
+        raise AssertionError("tracking found no box on some sample")
+    box = out["box"][0].tolist()
+    first = out["boxes"][0][out["valid"][0]]
+    syncs = host_syncs(call)
+    n_syncs = sum(syncs.values())
+    emit({"phase": "tracking_path", "batch": B_HEADS, "kwargs": {"kernel_mode": "fused"},
+          "launches_per_call": launches, "host_syncs_per_call": n_syncs,
+          "host_sync_sites": syncs, "valid_boxes_per_sample": sorted(set(n_valid.tolist())),
+          "roi_box": box, "boxes_sample_0": first.tolist()})
+    if n_syncs > MAX_TRACKING_SYNCS:
+        raise AssertionError(f"tracking synchronised {n_syncs} times")
+    del out
+    variants = [(mem, prev, nxt)] + [bench_inputs(B_HEADS, v, dev) for v in (1, 2)]
+    ms, samples = median_ms(call, variants)
+    emit({"phase": "tracking_path_time", "batch": B_HEADS, "ms_per_batch": ms,
+          "fps": B_HEADS / ms * 1e3, "samples_ms": samples, "card": smi_line()})
+    emit(device_trace(call, ms, B_HEADS, EXPECTED_LAUNCHES, path="tracking"))
+    return launches
+
+
+def drive_prediction(dev) -> dict:
+    """``prediction_batch_fast`` on the main path's workload at B_HEADS in
+    'fused' with a BGR next frame: exactly the main path's kernels, the
+    plain route's prediction bit for bit, no host synchronisation, the
+    prediction's SSIM against the true frame; then timed."""
+    cfg = bench_cfg()
+    mem, prev, nxt = bench_inputs(B_HEADS, 0, dev)
+    frame, future = heads_frames(B_HEADS, 0, dev)
+
+    def call(m=mem, p=prev, n=nxt, f=frame):
+        return prediction_batch_fast(m, p, n, f, cfg, kernel_mode="fused")
+
+    launches, out = launched_by(call)
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"prediction: launches {launches} != {EXPECTED_LAUNCHES}")
+    against_plain(call, out, ("pred", "flow", "box", "any_active"))
+    x0, y0, x1, y1 = out["box"][0].tolist()
+    outside = torch.ones((H, W), dtype=torch.bool, device=dev)
+    outside[y0:y1, x0:x1] = False
+    if not torch.equal(out["pred"][:, outside], frame[:, outside]):
+        raise AssertionError("the prediction changed pixels outside the ROI")
+    ssim = prediction_ssim(out["pred"], future)
+    ssim_next = prediction_ssim(frame, future)
+    if not torch.isfinite(ssim).all():
+        raise AssertionError("the prediction's SSIM is not finite")
+    syncs = host_syncs(call)
+    emit({"phase": "prediction_path", "batch": B_HEADS, "kwargs": {"kernel_mode": "fused"},
+          "launches_per_call": launches, "host_syncs_per_call": sum(syncs.values()),
+          "host_sync_sites": syncs, "roi_box": [x0, y0, x1, y1],
+          "changed_fraction_in_roi": (out["pred"][:, y0:y1, x0:x1]
+                                      != frame[:, y0:y1, x0:x1]).any(dim=-1)
+          .float().mean().item(),
+          "prediction_ssim_mean": ssim.mean().item(),
+          "next_frame_ssim_mean": ssim_next.mean().item()})
+    if syncs:
+        raise AssertionError(f"prediction synchronised with the host: {syncs}")
+    del out
+    variants = [(mem, prev, nxt, frame)] + [
+        (*bench_inputs(B_HEADS, v, dev), heads_frames(B_HEADS, v, dev)[0]) for v in (1, 2)]
+    ms, samples = median_ms(call, variants)
+    emit({"phase": "prediction_path_time", "batch": B_HEADS, "ms_per_batch": ms,
+          "fps": B_HEADS / ms * 1e3, "samples_ms": samples, "card": smi_line()})
+    emit(device_trace(call, ms, B_HEADS, EXPECTED_LAUNCHES, path="prediction"))
+    return launches
+
+
+def drive_dual(dev) -> None:
+    """The dual path: each pipeline's exact stages on one frame pair, as
+    the reference's runner calls them (pipelines/runner.py:184-199), every
+    stage timed; the ROI mask must be non-empty inside the box and zero
+    outside it, and no stage may launch a kernel."""
+    cfg = bench_cfg()
+    mem, prev, nxt = (t[0] for t in bench_inputs(1, 0, dev))
+    frame = heads_frames(1, 0, dev)[0][0]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for name, make in (("segmentation", seg_stages), ("tracking", tracking_stages),
+                       ("prediction", prediction_stages)):
+        st = make(cfg)
+        roi = st["cal"](mem)
+        flow_win, inbox = st["vel"](prev, nxt, mem, roi)
+        flow_full = st["vel_full"](prev, nxt)
+        calls = {"cal": lambda: st["cal"](mem),
+                 "vel": lambda: st["vel"](prev, nxt, mem, roi),
+                 "vel_full": lambda: st["vel_full"](prev, nxt)}
+        extra = {}
+        if name == "segmentation":
+            mask_win = st["task"](flow_win, inbox)
+            calls["task"] = lambda: st["task"](flow_win, inbox)
+            calls["comb"] = lambda: st["comb"](mask_win, roi["box"], roi["origin"])
+            calls["task_full"] = lambda: st["task_full"](flow_full)
+            mask = calls["comb"]()
+            x0, y0, x1, y1 = roi["box"].tolist()
+            inside = mask[y0:y1, x0:x1]
+            if not ((inside > 0).any() and mask.sum() == inside.sum()):
+                raise AssertionError("the ROI mask is empty in the box or set outside it")
+            extra = {"mask_fraction_in_roi": (inside > 0).float().mean().item(),
+                     "full_mask_fraction": (calls["task_full"]() > 0).float().mean().item()}
+        elif name == "tracking":
+            calls["task"] = lambda: st["task"](flow_win, inbox, roi["origin"], roi["active"])
+            calls["task_full"] = lambda: st["task_full"](flow_full)
+            extra = {"valid_boxes": int(calls["task"]()["valid"].sum()),
+                     "valid_boxes_full": int(calls["task_full"]()["valid"].sum())}
+        else:
+            flow = st["comb"](flow_win, roi["box"], roi["origin"])
+            calls["comb"] = lambda: st["comb"](flow_win, roi["box"], roi["origin"])
+            calls["task"] = lambda: st["task"](frame, flow, roi["box"], roi["active"])
+            calls["task_full"] = lambda: st["task_full"](frame, flow_full)
+        stage_ms = {k: median_ms(fn, [()])[0] for k, fn in calls.items()}
+        roi_ms = sum(stage_ms[k] for k in ("cal", "vel", "task", "comb") if k in stage_ms)
+        full_ms = stage_ms["vel_full"] + stage_ms["task_full"]
+        emit({"phase": "dual_path", "pipeline": name, "frame": [H, W],
+              "window": list(cfg.win_shape), "roi_box": roi["box"].tolist(),
+              "region_pct": roi["region_pct"].item(), "stage_ms": stage_ms,
+              "vel_speedup": stage_ms["vel_full"] / stage_ms["vel"],
+              "roi_speedup": full_ms / roi_ms, **extra, "card": smi_line()})
+        if name == "segmentation":
+            for key in ("vel", "vel_full"):
+                emit(device_trace(calls[key], stage_ms[key], 1, (), path=f"dual_{key}"))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the exact path launched kernels: {launched}")
+
+
 def tree_adds(win: int) -> int:
     """Additions of a log-tree window sum of width ``win`` a position, with
     every partial sum computed once."""
@@ -527,7 +764,7 @@ def check_kernels(dev) -> dict:
                        torch.tensor(cx, dtype=torch.int32, device=dev), ch, cw)
     for name, args in cases.items():
         got = troi.crop_windows_batch(*args)
-        ref = troi._crop_windows_plain(*args)
+        ref = troi.crop_windows(*args)
         if got.dtype != ref.dtype or not torch.equal(got, ref):
             raise AssertionError(f"K1 differs from its plain version in case {name}")
     errs["crop_windows"] = 0
@@ -654,7 +891,7 @@ def kernel_times(launches: dict, errs: dict, dev, prev) -> list[dict]:
     ox_odd = torch.full((b,), 161, dtype=torch.int32, device=dev)
     entry("crop_windows",
           lambda: troi.crop_windows_batch(frames, oy, ox, hk, wk),
-          lambda: troi._crop_windows_plain(frames, oy, ox, hk, wk),
+          lambda: troi.crop_windows(frames, oy, ox, hk, wk),
           lambda: dst.copy_(frames[:, 100:100 + hk, 160:160 + wk]),
           2 * b * hk * wk, 0, b,
           unaligned_origin={"ox": 161, "ms": time_ms(
@@ -788,6 +1025,11 @@ def main() -> None:
         got, _ = drive_path(ad, ad_inputs, AD_B, expected, dev, trace=True,
                             kernel_mode=mode)
         launches.update({k: v for k, v in got.items() if k != "crop_windows"})
+
+    # ── the tracking and prediction heads and the dual path ──
+    drive_tracking(dev)
+    drive_prediction(dev)
+    drive_dual(dev)
 
     # ── per-kernel times at each path's level-0 shapes ──
     _, prev, _ = bench_inputs(B_MAIN, 0, dev)

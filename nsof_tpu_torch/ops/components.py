@@ -1,19 +1,27 @@
-"""Connected components and component statistics, batched over B.
+"""Connected components, component statistics and NMS, batched over B.
 
-Counterpart of :mod:`nsof_tpu.ops.components` (``label_components``,
-``component_stats``, ``connected_components_with_stats``) for a batch of
-small masks ``[B, H, W]`` — the device-state grids that gate the ROI
-(6×8 on the headline workload).
+Counterpart of :mod:`nsof_tpu.ops.components` for batches of masks
+``[B, H, W]``.  Labels are *min linear index* roots, as in the JAX package:
+every pixel of a component carries the smallest row-major index of that
+component.  Such labels are unique to the components, so any correct
+labelling gives the same labels, and two forms serve two scales:
 
-Labels are *min linear index* roots, as in the JAX package: every pixel of
-a component carries the smallest row-major index of that component.  The
-JAX version propagates minima in a while-loop run to its fixpoint.  Here
-the fixpoint is reached in a number of steps fixed by the grid size, with
-no host round trip: the grid's adjacency matrix, self-loops included, is
-squared ``ceil(log2(H·W))`` times, which gives reachability over every
-path of up to ``H·W − 1`` steps, and a pixel's label is the least index it
-reaches.  The work is O(B·(HW)³·log HW), meant for device-state grids
-(at most a few hundred cells), not for image-sized masks.
+- :func:`label_components`, for the device-state grids that gate the ROI
+  (6×8 on the headline workload): the grid's adjacency matrix, self-loops
+  included, is squared ``ceil(log2(H·W))`` times, which gives reachability
+  over every path of up to ``H·W − 1`` steps, and a pixel's label is the
+  least index it reaches.  No host round trip; O(B·(HW)³·log HW) work, for
+  grids of at most a few hundred cells.
+- :func:`label_components_sweep`, for image-sized masks (the tracking
+  head's windows): the JAX package's sweep, a neighbour minimum and then
+  segmented running minima along rows and columns, repeated until a sweep
+  changes nothing or 256 sweeps.  The JAX ``while_loop`` tests after every
+  sweep on the device; here the host reads one flag every 8 sweeps (at most
+  32 synchronisations a call).  Sweeps past the fixpoint change nothing,
+  so the labels are the JAX labels.
+
+:func:`component_stats` reduces either form's labels to per-component
+boxes and areas with ``scatter_reduce``.
 """
 
 from __future__ import annotations
@@ -73,9 +81,72 @@ def label_components(mask: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
     return labels.reshape(b, h, w)
 
 
+_SEG_BITS = 31  # a label (≤ _BIG) fits below this bit of a scan key
+MAX_SWEEPS = 256  # the JAX package's max_sweeps
+CHECK_EVERY = 8  # sweeps between two host reads of the convergence flag
+
+
+def _neighbour_min(lab: torch.Tensor, connectivity: int) -> torch.Tensor:
+    """Min of each label and its in-image neighbours' labels."""
+    h, w = lab.shape[-2:]
+    lp = torch.nn.functional.pad(lab, (1, 1, 1, 1), value=_BIG)
+    shifts = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    if connectivity == 8:
+        shifts += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    out = lab
+    for dy, dx in shifts:
+        out = torch.minimum(out, lp[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w])
+    return out
+
+
+def _segmented_cummin(lab: torch.Tensor, resets: torch.Tensor, dim: int,
+                      reverse: bool) -> torch.Tensor:
+    """Running minimum of ``lab`` along ``dim``, restarted at every reset
+    (a reset element starts its segment).  The key puts the segment's rank
+    counted from the far end above the label, so a plain ``cummin`` never
+    carries a minimum across a reset."""
+    if reverse:
+        lab, resets = lab.flip(dim), resets.flip(dim)
+    seg = torch.cumsum(resets, dim)
+    key = ((lab.shape[dim] - seg) << _SEG_BITS) | lab
+    out = torch.cummin(key, dim).values & ((1 << _SEG_BITS) - 1)
+    return out.flip(dim) if reverse else out
+
+
+def label_components_sweep(mask: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
+    """Label the components of image-sized ``[B, H, W]`` masks (nonzero =
+    active) by the JAX package's sweep; int32 labels, background -1, each
+    component labelled by the minimum linear index of its pixels.
+
+    Synchronises with the host once every ``CHECK_EVERY`` sweeps, and stops
+    when those sweeps changed nothing or after ``MAX_SWEEPS``.
+    """
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    act = mask > 0
+    h, w = act.shape[-2:]
+    resets = (~act).long()
+    lin = torch.arange(h * w, device=act.device).reshape(h, w)
+    big = torch.full((), _BIG, dtype=torch.long, device=act.device)
+    lab = torch.where(act, lin, big)
+    for _ in range(MAX_SWEEPS // CHECK_EVERY):
+        before = lab
+        for _ in range(CHECK_EVERY):
+            lab = torch.where(act, _neighbour_min(lab, connectivity), big)
+            for dim in (-1, -2):
+                for reverse in (False, True):
+                    lab = _segmented_cummin(lab, resets, dim, reverse)
+            lab = torch.where(act, lab, big)
+        if not bool((lab != before).any()):
+            break
+    return torch.where(act, lab, -1).to(torch.int32)
+
+
 def component_stats(labels: torch.Tensor, k_max: int = 16) -> dict:
-    """Per-component bounding boxes and areas in ``k_max`` static slots
-    (ascending root id; components beyond ``k_max`` are dropped).
+    """Per-component bounding boxes and areas of ``[B, H, W]`` labels in
+    ``k_max`` static slots (ascending root id; components beyond ``k_max``
+    are dropped), reduced with ``scatter_reduce`` into ``k_max + 1`` slots,
+    the last one taking the background and the overflow.
 
     Returns ``boxes`` [B, k_max, 4] int32 (x, y, w, h), ``areas``
     [B, k_max] int32, ``valid`` [B, k_max] bool, ``count`` [B] int32.
@@ -84,23 +155,22 @@ def component_stats(labels: torch.Tensor, k_max: int = 16) -> dict:
     dev = labels.device
     flat = labels.reshape(b, h * w).long()
     lin = torch.arange(h * w, device=dev)
-    is_root = flat == lin
-    rank = torch.cumsum(is_root.long(), dim=1) - 1  # slot of each root
-    # slot of each pixel's component; background and overflow → k_max
+    rank = torch.cumsum((flat == lin).long(), dim=1) - 1  # slot of each root
     slot = torch.gather(rank, 1, flat.clamp(min=0))
-    slot = torch.where((flat >= 0) & (slot < k_max), slot, torch.full_like(slot, k_max))
-    onehot = slot[:, :, None] == torch.arange(k_max, device=dev)  # [B, HW, k]
-    ys = (lin // w)[None, :, None]
-    xs = (lin % w)[None, :, None]
-    big = torch.full((), _BIG, dtype=torch.long, device=dev)
-    x0 = torch.where(onehot, xs, big).amin(dim=1)
-    y0 = torch.where(onehot, ys, big).amin(dim=1)
-    x1 = torch.where(onehot, xs, -big).amax(dim=1)
-    y1 = torch.where(onehot, ys, -big).amax(dim=1)
-    areas = onehot.sum(dim=1)
+    slot = torch.where((flat >= 0) & (slot < k_max), slot, k_max)
+    ys = (lin // w).expand(b, -1)
+    xs = (lin % w).expand(b, -1)
+
+    def reduce(vals, fill, how):
+        out = torch.full((b, k_max + 1), fill, dtype=torch.long, device=dev)
+        return out.scatter_reduce(1, slot, vals, how)[:, :k_max]
+
+    x0, y0 = reduce(xs, _BIG, "amin"), reduce(ys, _BIG, "amin")
+    x1, y1 = reduce(xs, -_BIG, "amax"), reduce(ys, -_BIG, "amax")
+    areas = reduce(torch.ones_like(xs), 0, "sum")
     valid = areas > 0
     boxes = torch.stack([x0, y0, x1 - x0 + 1, y1 - y0 + 1], dim=-1)
-    boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+    boxes = torch.where(valid[..., None], boxes, 0)
     return {
         "boxes": boxes.to(torch.int32),
         "areas": areas.to(torch.int32),
@@ -118,3 +188,55 @@ def connected_components_with_stats(
     out = component_stats(labels, k_max)
     out["labels"] = labels
     return out
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+        iou_thresh: float, plus_one: bool = True) -> torch.Tensor:
+    """Greedy non-maximum suppression of ``[B, N, 4]`` (x1, y1, x2, y2)
+    float boxes scored by ``[B, N]``, candidates ``valid`` ``[B, N]``:
+    py_cpu_nms (optical_flow_ob.py:96-135) with its inclusive (+1) widths,
+    or exclusive ones with ``plus_one=False``.  Returns the ``[B, N]`` keep
+    mask.
+
+    N steps, each over the whole batch, with no host synchronisation; the
+    highest score alive is kept (the first of equal scores, as
+    ``jnp.argmax`` picks it) and suppresses every box with IoU > thresh.
+    """
+    boxes = boxes.float()
+    scores = scores.float()
+    n = boxes.shape[1]
+    one = 1.0 if plus_one else 0.0
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    areas = (y2 - y1 + one) * (x2 - x1 + one)
+    ids = torch.arange(n, device=boxes.device)
+    alive = valid.bool()
+    keep = torch.zeros_like(alive)
+    for _ in range(n):
+        i = torch.where(alive, scores, -torch.inf).argmax(dim=1, keepdim=True)
+        any_alive = alive.any(dim=1, keepdim=True)
+        picked = ids == i
+        keep = keep | (picked & any_alive)
+
+        def at(v):
+            return v.gather(1, i)
+
+        ww = (torch.minimum(at(x2), x2) - torch.maximum(at(x1), x1) + one).clamp(min=0.0)
+        hh = (torch.minimum(at(y2), y2) - torch.maximum(at(y1), y1) + one).clamp(min=0.0)
+        inter = ww * hh
+        iou = inter / (at(areas) + areas - inter)
+        suppress = (iou > iou_thresh) | picked
+        alive = torch.where(any_alive, alive & ~suppress, alive)
+    return keep
+
+
+def box_iou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
+    """IoU of (x1, y1, x2, y2) boxes ``[..., 4]`` with exclusive
+    coordinates (the tracking accuracy metric, optical_flow_ob.py:589-609)."""
+    xa = torch.maximum(box_a[..., 0], box_b[..., 0])
+    ya = torch.maximum(box_a[..., 1], box_b[..., 1])
+    xb = torch.minimum(box_a[..., 2], box_b[..., 2])
+    yb = torch.minimum(box_a[..., 3], box_b[..., 3])
+    inter = (xb - xa).clamp(min=0.0) * (yb - ya).clamp(min=0.0)
+    area_a = (box_a[..., 2] - box_a[..., 0]) * (box_a[..., 3] - box_a[..., 1])
+    area_b = (box_b[..., 2] - box_b[..., 0]) * (box_b[..., 3] - box_b[..., 1])
+    return inter / (area_a + area_b - inter).clamp(min=1e-9)

@@ -59,17 +59,21 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from nsof_tpu_torch import _build
 from nsof_tpu_torch.ops.farneback import (
     FarnebackParams,
-    _BORDER,
-    _BORDER_TABLE,
+    _blur_valid,
     _cv_round,
     _effective_levels,
+    _extend,
     _gaussian_blur_kernel,
     _poly_exp_coeffs,
+    _reflect_pad,
+    _resize_hwb,
+    _solve,
+    _tap_sum,
+    border_scale,
 )
 
 CANVAS = 32  # canvas granularity of the JAX route's tile grid
@@ -77,33 +81,6 @@ R1_MARGIN = (8, 16)  # r1's margin ring, rows and columns
 
 
 # ── shared helpers ────────────────────────────────────────────────────────
-
-
-def _extend(x: torch.Tensor, top: int, bottom: int, left: int, right: int):
-    """Edge-extend the last two dims: rows [-top, H+bottom), cols
-    [-left, W+right), each read at the clamped index."""
-    h, w = x.shape[-2:]
-    rows = torch.arange(-top, h + bottom, device=x.device).clamp_(0, h - 1)
-    cols = torch.arange(-left, w + right, device=x.device).clamp_(0, w - 1)
-    return x.index_select(-2, rows).index_select(-1, cols)
-
-
-@functools.lru_cache(maxsize=None)
-def _border_scale_np(h: int, w: int) -> np.ndarray:
-    def axis_scale(size):
-        s = np.ones(size, np.float32)
-        for i in range(min(_BORDER, size)):
-            s[i] *= _BORDER_TABLE[i]
-            s[size - 1 - i] *= _BORDER_TABLE[i]
-        return s
-
-    return np.outer(axis_scale(h), axis_scale(w))
-
-
-@functools.lru_cache(maxsize=64)
-def border_scale(h: int, w: int, device: str) -> torch.Tensor:
-    """OpenCV's border attenuation as an ``[h, w]`` float32 tensor."""
-    return torch.from_numpy(_border_scale_np(h, w)).to(device)
 
 
 def _hat(d: torch.Tensor, k: int) -> torch.Tensor:
@@ -378,14 +355,6 @@ def _win_sum_tree(a: torch.Tensor, n_out: int, win: int,
     return out
 
 
-def _solve(g: torch.Tensor):
-    """The 2×2 solve of the box-summed system ``g`` ``[..., 5, H, W]``
-    (channel dim 1), +1e-3 on the determinant → (dx, dy)."""
-    g11, g12, g22, h1, h2 = g.unbind(1)
-    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
-    return (g11 * h2 - g12 * h1) * idet, (g22 * h1 - g12 * h2) * idet
-
-
 def _blocks(x: torch.Tensor, rows: int, top: int, n_blk: int) -> torch.Tensor:
     """Split the row axis (dim 2) of ``[B, C, R, W]`` into ``n_blk``
     overlapping windows of ``rows`` rows starting at ``top + i·CANVAS``,
@@ -498,16 +467,6 @@ def fused_box_update(m, r0, r1, bsc, winsize, radius, emit, margin=R1_MARGIN):
 
 
 # ── the level route: expansion, K5 / K7 update, K6 solve ──────────────────
-
-
-def _tap_sum(x: torch.Tensor, k: np.ndarray, dim: int, n_out: int):
-    """Σ_t k[t]·x[t : t + n_out] along ``dim`` (a valid-mode correlation),
-    as weighted sums of shifted slices: no convolution, so no TF32 on the
-    card."""
-    out = float(k[0]) * x.narrow(dim, 0, n_out)
-    for t in range(1, len(k)):
-        out.add_(x.narrow(dim, t, n_out), alpha=float(k[t]))
-    return out
 
 
 def poly_expansion_fast(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
@@ -671,38 +630,6 @@ def _box_solve_dw(m: torch.Tensor, winsize: int):
 
 
 # ── pyramid glue ──────────────────────────────────────────────────────────
-
-
-def _blur_valid(xp: torch.Tensor, k: np.ndarray) -> torch.Tensor:
-    """Separable valid-mode blur of a pre-padded ``[B, H+2n, W+2n]``
-    image, as weighted sums of shifted slices (no convolution, so no TF32
-    on the card)."""
-    taps = len(k)
-    rows = xp.shape[-2] - taps + 1
-    cols = xp.shape[-1] - taps + 1
-    v = None
-    for s in range(taps):
-        term = float(k[s]) * xp[..., s : s + rows, :]
-        v = term if v is None else v + term
-    out = None
-    for s in range(taps):
-        term = float(k[s]) * v[..., s : s + cols]
-        out = term if out is None else out + term
-    return out
-
-
-def _reflect_pad(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Reflect-101 padding (OpenCV's BORDER_DEFAULT) of ``[B, H, W]``."""
-    return F.pad(x[:, None], (n, n, n, n), mode="reflect")[:, 0]
-
-
-def _resize_hwb(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear resize of ``[B, H, W]``: half-pixel centres, no antialias
-    (``jax.image.resize(..., 'bilinear', antialias=False)``)."""
-    if tuple(img.shape[-2:]) == (out_h, out_w):
-        return img
-    return F.interpolate(img[:, None], size=(out_h, out_w), mode="bilinear",
-                         align_corners=False, antialias=False)[:, 0]
 
 
 def _canvas(size: int) -> int:

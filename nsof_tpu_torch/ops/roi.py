@@ -124,18 +124,11 @@ def _clamped_origins(oys, oxs, h, w, win_h, win_w):
     return oy, ox
 
 
-def crop_window(img: torch.Tensor, origin_yx, win_h: int, win_w: int):
-    """Static-size crop of one ``[H, W(, C)]`` image."""
-    oy, ox = _clamped_origins(
-        torch.as_tensor(origin_yx[0]), torch.as_tensor(origin_yx[1]),
-        img.shape[0], img.shape[1], win_h, win_w,
-    )
-    oy, ox = int(oy), int(ox)
-    return img[oy : oy + win_h, ox : ox + win_w]
-
-
-def _crop_windows_plain(frames, oys, oxs, win_h, win_w):
-    """Plain version of K1: gather the windows with advanced indexing."""
+def crop_windows(frames: torch.Tensor, oys: torch.Tensor, oxs: torch.Tensor,
+                 win_h: int, win_w: int) -> torch.Tensor:
+    """Batched static-size crop by indexing, with no kernel: the exact
+    path's crop and the plain version of K1 (:func:`crop_windows_batch`).
+    Origins are clamped so the window fits, as dynamic_slice does."""
     b, h, w = frames.shape[:3]
     oy, ox = _clamped_origins(oys, oxs, h, w, win_h, win_w)
     dev = frames.device
@@ -143,6 +136,13 @@ def _crop_windows_plain(frames, oys, oxs, win_h, win_w):
     cols = ox[:, None, None] + torch.arange(win_w, device=dev)[None, None, :]
     bi = torch.arange(b, device=dev)[:, None, None]
     return frames[bi, rows, cols]
+
+
+def crop_window(img: torch.Tensor, origin_yx, win_h: int, win_w: int):
+    """Static-size crop of one ``[H, W(, C)]`` image at ``origin_yx``
+    (ints or 0-dim tensors): :func:`crop_windows` on a batch of one."""
+    oy, ox = (torch.as_tensor(o, device=img.device).reshape(1) for o in origin_yx)
+    return crop_windows(img[None], oy, ox, win_h, win_w)[0]
 
 
 def _crop_windows_cuda(frames, oys, oxs, win_h, win_w):
@@ -178,12 +178,12 @@ def crop_windows_batch(
     origins → windows ``[B, win_h, win_w(, C)]``.
 
     A CUDA tensor goes through kernel K1; a CPU tensor through the plain
-    version.  Origins are clamped so the window fits, as dynamic_slice
+    version, :func:`crop_windows`.  Origins are clamped so the window fits, as dynamic_slice
     does.
     """
     if frames.is_cuda:
         return _crop_windows_cuda(frames, oys, oxs, win_h, win_w)
-    return _crop_windows_plain(frames, oys, oxs, win_h, win_w)
+    return crop_windows(frames, oys, oxs, win_h, win_w)
 
 
 def window_box_mask(box: torch.Tensor, oys: torch.Tensor, oxs: torch.Tensor,
@@ -223,3 +223,25 @@ def region_percentage(box: torch.Tensor, image_h: int, image_w: int):
     area = (box[..., 2] - box[..., 0]).clamp(min=0) * (
         box[..., 3] - box[..., 1]).clamp(min=0)
     return 100.0 * area.to(torch.float32) / float(image_h * image_w)
+
+
+def as_batch(tree, device):
+    """One sample as a batch of one: every tensor or array of ``tree`` (a
+    tensor, or a tuple or dict of them) on ``device`` with a leading
+    dimension of 1 (the single-sample entry points call the batched
+    functions through it)."""
+    if isinstance(tree, dict):
+        return {k: as_batch(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(as_batch(v, device) for v in tree)
+    return torch.as_tensor(tree).to(device)[None]
+
+
+def first(tree):
+    """Sample 0 of every tensor of a batched ``tree`` (the inverse of
+    :func:`as_batch`)."""
+    if isinstance(tree, dict):
+        return {k: first(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(first(v) for v in tree)
+    return tree[0]

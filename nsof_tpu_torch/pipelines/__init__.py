@@ -1,1 +1,2 @@
-"""Pipelines of the port: the ROI-gated segmentation path."""
+"""Pipelines of the port: segmentation (the main path and the dual path),
+tracking and prediction."""

@@ -1,14 +1,22 @@
-"""ROI-gated motion segmentation, batched: the port's main path.
+"""ROI-gated motion segmentation: the port's main path and the dual path.
 
-Counterpart of the throughput path of :mod:`nsof_tpu.pipelines.segmentation`
-(``seg_batch_fast`` and its head).  Per frame pair the device-state map
-gates the merged (FLAG=2) ROI; a static-size window is cropped at the ROI's
-origin (K1); the fast Farnebäck computes flow on the window (the fused
-route, K2–K4, or for presets beyond its halos the level route, K5 and K6);
-the head thresholds |flow|² and smooths it with N × (dilate ∘
+Counterpart of :mod:`nsof_tpu.pipelines.segmentation`.  Per frame pair the
+device-state map gates the merged (FLAG=2) ROI; a static-size window is
+cropped at the ROI's origin; Farnebäck flow is computed on the window; the
+head thresholds the flow magnitude and smooths the mask with N × (dilate ∘
 erode) under the ellipse, re-masking to the box between steps to emulate
 the reference's morphology on the cropped region; and the mask is
 scattered back into the frame.
+
+- :func:`seg_batch_fast`, the throughput path: the crop is K1, the flow the
+  fast Farnebäck (the fused route, K2–K4, or for presets beyond its halos
+  the level route, K5 and K6), the head thresholds |flow|².
+- The exact path, which launches no kernel: :func:`seg_batch` on a batch,
+  :func:`seg_step` on one pair, :func:`seg_step_full` on the whole frame,
+  and the per-stage programs of the reference's dual-path replay,
+  :func:`roi_stages` and :func:`seg_stages`.  It crops by indexing, runs the
+  exact Farnebäck and thresholds sqrt(fx² + fy²), as the JAX package's
+  exact path does.
 """
 
 from __future__ import annotations
@@ -17,7 +25,10 @@ import torch
 
 from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import PipelineConfig
+from nsof_tpu_torch.ops import colorspace as cs
+from nsof_tpu_torch.ops import morphology as morph
 from nsof_tpu_torch.ops import roi as roi_ops
+from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
 from nsof_tpu_torch.ops.farneback_fast import farneback_fast
 from nsof_tpu_torch.ops.morphology import ellipse_se
 from nsof_tpu_torch.ops.morphology_fast import dilate_erode_n_masked
@@ -107,6 +118,163 @@ def seg_batch_fast(
             flow_win, box, oys, oxs,
         )
     return out
+
+
+def seg_head_window(flow_win: torch.Tensor, inbox: torch.Tensor,
+                    cfg: PipelineConfig) -> torch.Tensor:
+    """The reference seg head on windows ``[..., h, w, 2]`` restricted to
+    ``inbox`` ``[..., h, w]`` → uint8 {0, 255} ``[..., h, w]``: |flow| >
+    SEG_TH, then N × (dilate; erode) with the ellipse, the box's border
+    emulated by re-masking (optical_flow_seg.py:322-357)."""
+    mag = cs.magnitude(flow_win[..., 0], flow_win[..., 1])
+    mask = ((mag > cfg.head.seg_th) & inbox).to(torch.uint8) * 255
+    se = ellipse_se(cfg.head.morph_ksize, cfg.head.morph_ksize)
+    for _ in range(cfg.head.morph_iters):
+        mask = morph.dilate_binary(torch.where(inbox, mask, 0), se)
+        mask = morph.erode_binary(torch.where(inbox, mask, 255), se)
+    return cs.threshold_binary(torch.where(inbox, mask, 0), 1, 255)
+
+
+def gate(mem: torch.Tensor, cfg: PipelineConfig) -> dict:
+    """The batched 'cal' stage: ``[B, gh, gw]`` state maps → the merged
+    ROI ``box`` [B, 4], ``active`` [B], the window ``origin`` (oys, oxs) and
+    ``region_pct`` [B]."""
+    h, w = cfg.image_h, cfg.image_w
+    wh, ww = cfg.win_shape
+    r = roi_ops.roi_boxes(mem, h, w, cfg.roi)
+    box = r["merged"]
+    return {
+        "box": box,
+        "active": r["any_active"],
+        "origin": roi_ops.window_origin(box, wh, ww, h, w),
+        "region_pct": roi_ops.region_percentage(box, h, w),
+    }
+
+
+def _in_box(flow_win: torch.Tensor, roi: dict, cfg: PipelineConfig):
+    """Window flow zeroed outside each active sample's box, and that box
+    mask ``[B, wh, ww]``."""
+    inbox = roi_ops.window_box_mask(roi["box"], *roi["origin"], *cfg.win_shape)
+    inbox = inbox & roi["active"][:, None, None]
+    return torch.where(inbox[..., None], flow_win, 0.0), inbox
+
+
+def window_flow(prev: torch.Tensor, nxt: torch.Tensor, roi: dict,
+                cfg: PipelineConfig):
+    """The batched 'vel' stage: the exact Farnebäck on each sample's window
+    (cropped by indexing), negated (optical_flow_seg.py:461) and zeroed
+    outside its box → ``(flow_win [B, wh, ww, 2], inbox [B, wh, ww])``."""
+    p_win = roi_ops.crop_windows(prev, *roi["origin"], *cfg.win_shape)
+    n_win = roi_ops.crop_windows(nxt, *roi["origin"], *cfg.win_shape)
+    return _in_box(-farneback_batch(p_win, n_win, cfg.fb, device=prev.device), roi, cfg)
+
+
+def fast_window_flow(prev: torch.Tensor, nxt: torch.Tensor, roi: dict,
+                     cfg: PipelineConfig, warp_radius: int, kernel_mode: str):
+    """:func:`window_flow` on the throughput paths: K1 crops and the fast
+    Farnebäck in ``kernel_mode``."""
+    p_win = roi_ops.crop_windows_batch(prev, *roi["origin"], *cfg.win_shape)
+    n_win = roi_ops.crop_windows_batch(nxt, *roi["origin"], *cfg.win_shape)
+    flow_win = -farneback_fast(p_win, n_win, cfg.fb, warp_radius, kernel_mode,
+                               device=prev.device)
+    return _in_box(flow_win, roi, cfg)
+
+
+def seg_batch(mem_u8, prev_gray, next_gray, cfg: PipelineConfig,
+              device=None) -> dict:
+    """The exact ROI-gated segmentation of a batch (the JAX package's
+    ``seg_step`` on each pair): ``[B, gh, gw]`` uint8 state maps and
+    ``[B, H, W]`` uint8 frames → ``mask`` [B, H, W] uint8, ``flow``
+    [B, H, W, 2] (negated, zero outside the ROI), ``box``, ``any_active``,
+    ``region_pct``.  Runs on ``device`` (default the CUDA device; raises
+    ``RuntimeError`` without one unless ``device='cpu'``)."""
+    dev = _build.resolve_device(device)
+    mem = torch.as_tensor(mem_u8).to(dev)
+    prev = torch.as_tensor(prev_gray).to(dev)
+    nxt = torch.as_tensor(next_gray).to(dev)
+    h, w = cfg.image_h, cfg.image_w
+    roi = gate(mem, cfg)
+    flow_win, inbox = window_flow(prev, nxt, roi, cfg)
+    mask_win = seg_head_window(flow_win, inbox, cfg)
+    b = mem.shape[0]
+    box, (oys, oxs) = roi["box"], roi["origin"]
+    zeros = torch.zeros((b, h, w), dtype=torch.uint8, device=dev)
+    return {
+        "mask": roi_ops.scatter_window(zeros, mask_win, box, oys, oxs),
+        "flow": roi_ops.scatter_window(
+            torch.zeros((b, h, w, 2), dtype=torch.float32, device=dev),
+            flow_win, box, oys, oxs),
+        "box": box,
+        "any_active": roi["active"],
+        "region_pct": roi["region_pct"],
+    }
+
+
+def seg_step(mem_u8, prev_gray, next_gray, cfg: PipelineConfig,
+             device=None) -> dict:
+    """One ROI-gated segmentation step: :func:`seg_batch` on one pair
+    (``[gh, gw]`` and ``[H, W]`` inputs, unbatched outputs)."""
+    dev = _build.resolve_device(device)
+    args = roi_ops.as_batch((mem_u8, prev_gray, next_gray), dev)
+    return roi_ops.first(seg_batch(*args, cfg, device=dev))
+
+
+def seg_step_full(prev_gray, next_gray, cfg: PipelineConfig, device=None) -> dict:
+    """The full-frame baseline: the exact Farnebäck on the whole ``[H, W]``
+    frame and the same head (optical_flow_seg.py:492-541)."""
+    dev = _build.resolve_device(device)
+    flow = -farneback(prev_gray, next_gray, cfg.fb, device=dev)
+    inbox = torch.ones(flow.shape[:2], dtype=torch.bool, device=dev)
+    return {"mask": seg_head_window(flow, inbox, cfg), "flow": flow}
+
+
+def roi_stages(cfg: PipelineConfig, device=None) -> dict:
+    """The ROI and flow stages of the reference's per-stage replay
+    (optical_flow_seg.py:51-59, 211-252), one frame pair a call, as the
+    runner calls them: 'cal' maps a ``[gh, gw]`` state map to the ROI
+    descriptor, 'vel' computes the windowed flow (negated, masked) and its
+    box mask from ``(prev, next, mem, roi)``, 'vel_full' the full-frame
+    flow.  FLAG=1 (``cfg.roi.mode == 1``) raises ``NotImplementedError``."""
+    if cfg.roi.mode == 1:
+        raise NotImplementedError(
+            "FLAG=1 separate regions (cfg.roi.mode == 1) is not ported yet")
+    dev = _build.resolve_device(device)
+
+    def cal(mem_u8):
+        return roi_ops.first(gate(roi_ops.as_batch(mem_u8, dev), cfg))
+
+    def vel(prev_gray, next_gray, mem_u8, roi):
+        args = roi_ops.as_batch((prev_gray, next_gray, roi), dev)
+        return roi_ops.first(window_flow(*args, cfg))
+
+    def vel_full(prev_gray, next_gray):
+        return -farneback(prev_gray, next_gray, cfg.fb, device=dev)
+
+    return {"cal": cal, "vel": vel, "vel_full": vel_full}
+
+
+def seg_stages(cfg: PipelineConfig, device=None) -> dict:
+    """:func:`roi_stages` plus the seg head stages: 'task' (the head on the
+    window), 'comb' (the scatter into the frame) and 'task_full' (the head
+    on the full-frame flow)."""
+    h, w = cfg.image_h, cfg.image_w
+    stages = roi_stages(cfg, device)
+    dev = _build.resolve_device(device)
+
+    def task(flow_win, inbox):
+        return seg_head_window(flow_win, inbox, cfg)
+
+    def comb(mask_win, box, origin):
+        mask_win, box, origin = roi_ops.as_batch((mask_win, box, origin), dev)
+        zeros = torch.zeros((1, h, w), dtype=torch.uint8, device=dev)
+        return roi_ops.scatter_window(zeros, mask_win, box, *origin)[0]
+
+    def task_full(flow):
+        return seg_head_window(flow, torch.ones((h, w), dtype=torch.bool,
+                                                device=dev), cfg)
+
+    stages.update({"task": task, "comb": comb, "task_full": task_full})
+    return stages
 
 
 def pixel_accuracy(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

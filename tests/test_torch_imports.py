@@ -15,6 +15,10 @@ from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import DATASETS
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
+from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
+from nsof_tpu_torch.pipelines import prediction as tpred
+from nsof_tpu_torch.pipelines import segmentation as tseg
+from nsof_tpu_torch.pipelines import tracking as ttrk
 from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -41,6 +45,7 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import nsof_tpu_torch, nsof_tpu_torch.pipelines.segmentation\n"
+        "import nsof_tpu_torch.pipelines.tracking, nsof_tpu_torch.pipelines.prediction\n"
         "import nsof_tpu_torch.ops.farneback_fast, nsof_tpu_torch._build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'nsof_tpu')]\n"
         "assert not bad, bad\n"
@@ -59,6 +64,42 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
         seg_batch_fast(mem, frames, frames, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tff.farneback_fast(frames, frames)
+
+
+ENTRY_POINTS = {
+    "farneback": lambda c, m, f, g, **kw: farneback(f[0], f[0], **kw),
+    "farneback_batch": lambda c, m, f, g, **kw: farneback_batch(f, f, **kw),
+    "seg_batch": lambda c, m, f, g, **kw: tseg.seg_batch(m, f, f, c, **kw),
+    "seg_step": lambda c, m, f, g, **kw: tseg.seg_step(m[0], f[0], f[0], c, **kw),
+    "seg_step_full": lambda c, m, f, g, **kw: tseg.seg_step_full(f[0], f[0], c, **kw),
+    "seg_stages": lambda c, m, f, g, **kw: tseg.seg_stages(c, **kw),
+    "tracking_batch_fast":
+        lambda c, m, f, g, **kw: ttrk.tracking_batch_fast(m, f, f, c, **kw),
+    "tracking_step": lambda c, m, f, g, **kw: ttrk.tracking_step(m[0], f[0], f[0], c, **kw),
+    "tracking_step_full": lambda c, m, f, g, **kw: ttrk.tracking_step_full(f[0], f[0], c, **kw),
+    "tracking_stages": lambda c, m, f, g, **kw: ttrk.tracking_stages(c, **kw),
+    "prediction_batch_fast":
+        lambda c, m, f, g, **kw: tpred.prediction_batch_fast(m, f, f, g, c, **kw),
+    "prediction_step":
+        lambda c, m, f, g, **kw: tpred.prediction_step(m[0], f[0], f[0], g[0], c, **kw),
+    "prediction_step_full":
+        lambda c, m, f, g, **kw: tpred.prediction_step_full(f[0], f[0], g[0], c, **kw),
+    "prediction_stages": lambda c, m, f, g, **kw: tpred.prediction_stages(c, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_needs_cuda_or_cpu(monkeypatch, name):
+    """Each entry point of the exact path and of the tracking and
+    prediction paths raises without a CUDA device unless it is given
+    ``device='cpu'``, and then runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = DATASETS["tabletennis"]
+    args = (cfg, np.zeros((1, 16, 16), np.uint8), np.zeros((1, 160, 160), np.uint8),
+            np.zeros((1, 160, 160, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name](*args)
+    ENTRY_POINTS[name](*args, device="cpu")
 
 
 @pytest.fixture

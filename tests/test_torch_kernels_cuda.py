@@ -52,7 +52,7 @@ def test_crop_windows_kernel_matches_plain(cuda_device, name):
     ox = torch.tensor(oxs, dtype=torch.int32, device=cuda_device)
     got = troi.crop_windows_batch(frames, oy, ox, wh, ww)
     torch.cuda.synchronize()
-    ref = troi._crop_windows_plain(frames, oy, ox, wh, ww)
+    ref = troi.crop_windows(frames, oy, ox, wh, ww)
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert torch.equal(got, ref)
 
