@@ -10,7 +10,10 @@ the card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from nsof_tpu_torch.ops.farneback import _extend, _tap_sum
 
 
 def _uniform_filter(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -19,16 +22,9 @@ def _uniform_filter(x: torch.Tensor, size: int) -> torch.Tensor:
     matter)."""
     r = size // 2
     h, w = x.shape[-2:]
-    rows = torch.arange(-r, h + r, device=x.device).clamp_(0, h - 1)
-    cols = torch.arange(-r, w + r, device=x.device).clamp_(0, w - 1)
-    xp = x.index_select(-2, rows).index_select(-1, cols)
-    v = xp[..., 0:h, :]
-    for t in range(1, size):
-        v = v + xp[..., t : t + h, :]
-    out = v[..., 0:w]
-    for t in range(1, size):
-        out = out + v[..., t : t + w]
-    return out * (1.0 / (size * size))
+    ones = np.ones(size, np.float32)
+    xp = _extend(x, r, r, r, r)
+    return _tap_sum(_tap_sum(xp, ones, -2, h), ones, -1, w) * (1.0 / (size * size))
 
 
 def ssim(im1: torch.Tensor, im2: torch.Tensor, data_range: float = 255.0,

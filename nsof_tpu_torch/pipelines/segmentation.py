@@ -26,7 +26,6 @@ import torch
 from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import PipelineConfig
 from nsof_tpu_torch.ops import colorspace as cs
-from nsof_tpu_torch.ops import morphology as morph
 from nsof_tpu_torch.ops import roi as roi_ops
 from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
 from nsof_tpu_torch.ops.farneback_fast import farneback_fast
@@ -125,14 +124,11 @@ def seg_head_window(flow_win: torch.Tensor, inbox: torch.Tensor,
     """The reference seg head on windows ``[..., h, w, 2]`` restricted to
     ``inbox`` ``[..., h, w]`` → uint8 {0, 255} ``[..., h, w]``: |flow| >
     SEG_TH, then N × (dilate; erode) with the ellipse, the box's border
-    emulated by re-masking (optical_flow_seg.py:322-357)."""
-    mag = cs.magnitude(flow_win[..., 0], flow_win[..., 1])
-    mask = ((mag > cfg.head.seg_th) & inbox).to(torch.uint8) * 255
+    emulated by re-masking (optical_flow_seg.py:322-357).  Only the sqrt
+    threshold differs from :func:`_seg_head_mag2`."""
+    x = (cs.magnitude(flow_win[..., 0], flow_win[..., 1]) > cfg.head.seg_th) & inbox
     se = ellipse_se(cfg.head.morph_ksize, cfg.head.morph_ksize)
-    for _ in range(cfg.head.morph_iters):
-        mask = morph.dilate_binary(torch.where(inbox, mask, 0), se)
-        mask = morph.erode_binary(torch.where(inbox, mask, 255), se)
-    return cs.threshold_binary(torch.where(inbox, mask, 0), 1, 255)
+    return dilate_erode_n_masked(x, inbox, se, cfg.head.morph_iters).to(torch.uint8) * 255
 
 
 def gate(mem: torch.Tensor, cfg: PipelineConfig) -> dict:

@@ -71,7 +71,7 @@ def tracking_head_window(flow_win: torch.Tensor, inbox: torch.Tensor, origin_yx,
     dil = morph.dilate_gray(torch.where(inbox, gray, 0), se)
     closed = morph.erode_gray(torch.where(inbox, dil, 255), se)
     binary = cs.threshold_binary(torch.where(inbox, closed, 0), cfg.head.seg_th)
-    stats = comp.component_stats(comp.label_components_sweep(binary, 8),
+    stats = comp.component_stats_scatter(comp.label_components_sweep(binary, 8),
                                  cfg.head.max_boxes)
     boxes = stats["boxes"].float()  # (x, y, w, h) in window coordinates
     areas = stats["areas"].float()
@@ -186,7 +186,7 @@ def max_bbox_from_mask(mask: torch.Tensor, k_max: int = 32):
     """The bbox of the largest-rectangle 8-connected component of an
     ``[H, W]`` mask (get_max_bbox_from_mask, optical_flow_ob.py:137-180) →
     ((x1, y1, x2, y2) float32, found)."""
-    stats = comp.component_stats(comp.label_components_sweep(mask[None], 8), k_max)
+    stats = comp.component_stats_scatter(comp.label_components_sweep(mask[None], 8), k_max)
     boxes, valid = stats["boxes"][0], stats["valid"][0]
     rect_area = torch.where(valid, boxes[:, 2] * boxes[:, 3], -1)
     i = torch.argmax(rect_area)

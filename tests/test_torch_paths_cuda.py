@@ -65,8 +65,8 @@ def test_sweep_labelling_cuda_equals_cpu(cuda_device, connectivity):
     ref = tcc.label_components_sweep(masks, connectivity)
     assert torch.equal(got.cpu(), ref)
     for k_max in (16, 32):
-        gs = tcc.component_stats(got, k_max)
-        rs = tcc.component_stats(ref, k_max)
+        gs = tcc.component_stats_scatter(got, k_max)
+        rs = tcc.component_stats_scatter(ref, k_max)
         for key in ("boxes", "areas", "valid", "count"):
             assert torch.equal(gs[key].cpu(), rs[key]), key
 

@@ -13,7 +13,7 @@ depend on r), the head fed the JAX exact
 flow, ``tracking_step``, ``tracking_step_full`` and the stages, on
 ``tests/test_torch_seg_dual.py``'s 120×160 grasp cut with a 64×96 window.
 
-Measured here (13 tests): labels, stats, keep masks and IoUs equal;
+Measured here (15 tests): labels, stats, keep masks and IoUs equal;
 boxes, valid and areas equal on every tracking path.  The gray images of
 the head fed the same flows differ from the jitted JAX chain's at 28 of
 the 34,304 in-box pixels, by one level (XLA fuses products into adds and
@@ -80,12 +80,13 @@ def test_sweep_labels_serpentine(turns):
     assert final == (turns == 30)
 
 
+@pytest.mark.parametrize("form", ["component_stats", "component_stats_scatter"])
 @pytest.mark.parametrize("k_max", [4, 32])
-def test_component_stats_match_jax(k_max):
+def test_component_stats_match_jax(k_max, form):
     rng = np.random.default_rng(k_max)
     masks = np.stack([rng.random((40, 52)) < 0.45 for _ in range(3)])
     labels = _jax_labels(masks, 8)
-    got = tcc.component_stats(torch.from_numpy(labels), k_max)
+    got = getattr(tcc, form)(torch.from_numpy(labels), k_max)
     ref = jax.vmap(lambda lab: jcc.component_stats(lab, k_max))(jnp.asarray(labels))
     for key in ("boxes", "areas", "valid", "count"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), key)
