@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1–K7) from ``nsof_tpu_torch/csrc``, holds
+Builds the port's CUDA kernels (K1–K8) from ``nsof_tpu_torch/csrc``, holds
 each, and the float32 forms of K3 and K4, against its plain PyTorch version
-on the card, then drives three paths of ``seg_batch_fast``:
+on the card (K8, the stream's device scan, at ``K8_CASES``), then drives
+three paths of ``seg_batch_fast``:
 
 - the main path on bench.py's 640×480 workload (256×384 window, grasp
   preset, memsize 80, warp radius 3) at B = 256, the fused route (K1–K4);
@@ -30,8 +31,23 @@ grasp workload:
   them, each stage timed, and the ROI path's speed-up over the full frame;
   the exact path launches no kernel.
 
+Then the device simulation, on scripts/bench_stream.py's workload (480×640
+frames, a 96×96 block moving (2, 3) px a frame over a static texture, 129
+frames a call, a 6×8 device grid, n_substeps 1000, the grasp path):
+
+- ``stream_masks`` in 'auto' (K8 once, K1–K4), every output equal to the
+  plain route's (K8 on its plain loop too), no host synchronisation, timed
+  (ms per call, pairs per second) and traced; ``stream_masks_chunked`` at
+  64 pairs a chunk, equal to the one-shot call, timed;
+- ``stream_masks_from_events``: synthetic events of a box crossing the 6×8
+  grid, binned by the native binner, integrated by the event simulator,
+  gating the grasp path; its launches and host synchronisations;
+- the FLAG=1 stages: :func:`drive_dual` on grasp_sep at 640×480 with two
+  components whose regions overlap.
+
 Last, each kernel is timed at its path's level-0 shapes beside its bound
-and its plain version (K7 also at radius 8).
+and its plain version (K7 also at radius 8; K8 at the stream's shapes,
+its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound).
 
 Each phase prints one JSON line.  The line before the last is the card's
 name and power limit as ``nvidia-smi`` reports them, the one before that
@@ -46,6 +62,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -57,11 +74,15 @@ import torch
 
 from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import DATASETS
+from nsof_tpu_torch.device import frame_sim as tfs
+from nsof_tpu_torch.device.model import DEFAULT_PARAMS
+from nsof_tpu_torch.device.synthetic import generate_synthetic_events
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 from nsof_tpu_torch.ops.farneback import _gaussian_blur_kernel, _poly_exp_coeffs
 from nsof_tpu_torch.pipelines.prediction import (prediction_batch_fast, prediction_ssim,
                                                  prediction_stages)
+from nsof_tpu_torch.pipelines import stream as tstream
 from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast, seg_stages
 from nsof_tpu_torch.pipelines.tracking import tracking_batch_fast, tracking_stages
 
@@ -136,6 +157,32 @@ B_HEADS = 64
 MAX_TRACKING_SYNCS = 32
 # each timed call: median of TIME_N after TIME_WARM warm-up calls
 TIME_WARM, TIME_N = 3, 10
+# K8 against its plain version, n_substeps 1000: name → (grid, pairs,
+# FrameSimConfig changes).  6×8 is memsize 80 at 480×640, 12×16 memsize 40;
+# th1 = 6 puts |Δ| in (5.5, 6] in the modulation's dead zone; alpha 2 and
+# 1.5 raise the drive by powf
+K8_SUBSTEPS = 1000
+K8_CASES = {
+    "grid_6x8": ((6, 8), 3, {}),
+    "grid_12x16": ((12, 16), 3, {}),
+    "ragged_7x13": ((7, 13), 2, {}),
+    "dead_zone_th1_6": ((6, 8), 2, {"th1": 6.0}),
+    "alpha_2_1.5": ((6, 8), 2, {"alpha_off": 2.0, "alpha_on": 1.5}),
+}
+# the stream: scripts/bench_stream.py's workload, 129 frames (128 pairs) a
+# call, the grasp main path's kernels and one K8 launch
+STREAM_T = 128 + 1
+STREAM_CHUNK = 64
+STREAM_LAUNCHES = {"device_scan": 1, **EXPECTED_LAUNCHES}
+# K8's plain version is ~25 launches a substep: it is timed at this count
+K8_PLAIN_SUBSTEPS = 100
+# the event-gated stream: a 2×2-cell box crossing the 6×8 grid at 8 cells
+# a second for 1 s, frames at 25 fps
+EVENT_FPS = 25
+# one dependent step of K8 as reckoned for its chain bound: 8 float32
+# operations at 4 cycles and the two special-function operations (log2,
+# exp2) any powf needs at ~18 cycles, at the H100 SXM's 1.98 GHz boost clock
+K8_STEP_NS = (8 * 4 + 2 * 18) / 1.98
 # launch key → (source, TPU kernel it replaces, CUDA kernel name in a trace)
 SOURCES = {
     "crop_windows": ("nsof_tpu_torch/csrc/crop_windows.cu",
@@ -160,6 +207,9 @@ SOURCES = {
                   "nsof_tpu/ops/farneback_fast.py:488", "box_solve_"),
     "update_matrices": ("nsof_tpu_torch/csrc/update_matrices.cu",
                         "nsof_tpu/ops/farneback_fast.py:199", "update_matrices_kernel"),
+    "device_scan": ("nsof_tpu_torch/csrc/device_scan.cu",
+                    "nsof_tpu/pipelines/stream.py:48 (not a TPU kernel: XLA lax.scan)",
+                    "device_scan_kernel"),
 }
 
 
@@ -340,6 +390,25 @@ def k7_case(name: str, dev):
     return (lambda: tff.update_matrices(*args)), (lambda: tff._update_matrices_plain(*args))
 
 
+def k8_case(name: str, dev):
+    """K8_CASES[name] as a kernel call and its plain version's call, each
+    giving (w_final, mem_gray, states): compressed frames in [0, 1] whose
+    |Δ|·256 between pairs spans [0, 12] (both branches of the |Δ| transfer),
+    a random initial state."""
+    (gh, gw), pairs, changes = K8_CASES[name]
+    rng = np.random.default_rng(gh * gw + pairs)
+    params = {k: v for k, v in changes.items() if k.startswith("alpha")}
+    sim = tfs.FrameSimConfig(m=MEMSIZE, n=MEMSIZE, n_substeps=K8_SUBSTEPS,
+                             params=dataclasses.replace(DEFAULT_PARAMS, **params),
+                             **{k: v for k, v in changes.items() if k not in params})
+    steps = rng.uniform(0, 12, (pairs, gh, gw)) * rng.choice([-1, 1], (pairs, gh, gw))
+    frames = np.concatenate([rng.uniform(0.1, 0.9, (1, gh, gw)), steps / 256]).cumsum(0)
+    frames = torch.from_numpy(np.clip(frames, 0, 1).astype(np.float32)).to(dev)
+    w0 = torch.from_numpy(rng.random((gh, gw)).astype(np.float32)).to(dev)
+    return (lambda: tfs.scan_device(frames, sim, w0, keep_states=True),
+            lambda: tfs.scan_device_plain(frames, sim, w0, keep_states=True))
+
+
 def flow_check(got, ref, name: str, tol: float = 1e-5) -> float:
     err = max((g - r).abs().max().item() for g, r in zip(got, ref))
     if not err <= tol:
@@ -351,15 +420,16 @@ def flow_check(got, ref, name: str, tol: float = 1e-5) -> float:
 def plain_route():
     """Swap every kernel wrapper for its plain version (the reference run
     of a path on the card)."""
-    names = {"crop_windows_batch": (troi, "crop_windows"),
-             "poly_expansion": (tff, "_poly_expansion_plain"),
-             "update_matrices_sep": (tff, "_update_matrices_sep_plain"),
-             "fused_box_update": (tff, "_fused_box_update_plain"),
-             "update_matrices": (tff, "_update_matrices_plain"),
-             "box_solve": (tff, "_box_solve_plain")}
+    names = {"crop_windows_batch": (troi, troi.crop_windows),
+             "poly_expansion": (tff, tff._poly_expansion_plain),
+             "update_matrices_sep": (tff, tff._update_matrices_sep_plain),
+             "fused_box_update": (tff, tff._fused_box_update_plain),
+             "update_matrices": (tff, tff._update_matrices_plain),
+             "box_solve": (tff, tff._box_solve_plain),
+             "scan_device": (tstream, tfs.scan_device_plain)}
     saved = {name: getattr(mod, name) for name, (mod, _) in names.items()}
     for name, (mod, plain) in names.items():
-        setattr(mod, name, getattr(mod, plain))
+        setattr(mod, name, plain)
     try:
         yield
     finally:
@@ -676,13 +746,16 @@ def drive_prediction(dev) -> dict:
     return launches
 
 
-def drive_dual(dev) -> None:
+def drive_dual(dev, cfg=None, mem=None, phase: str = "dual_path") -> None:
     """The dual path: each pipeline's exact stages on one frame pair, as
     the reference's runner calls them (pipelines/runner.py:184-199), every
     stage timed; the ROI mask must be non-empty inside the box and zero
-    outside it, and no stage may launch a kernel."""
-    cfg = bench_cfg()
-    mem, prev, nxt = (t[0] for t in bench_inputs(1, 0, dev))
+    outside it, and no stage may launch a kernel.  By default on the main
+    path's workload; ``cfg`` and the ``[gh, gw]`` state map ``mem`` replace
+    its config and map (the FLAG=1 stages)."""
+    cfg = cfg or bench_cfg()
+    bench_mem, prev, nxt = (t[0] for t in bench_inputs(1, 0, dev))
+    mem = bench_mem if mem is None else mem
     frame = heads_frames(1, 0, dev)[0][0]
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -721,18 +794,187 @@ def drive_dual(dev) -> None:
         stage_ms = {k: median_ms(fn, [()])[0] for k, fn in calls.items()}
         roi_ms = sum(stage_ms[k] for k in ("cal", "vel", "task", "comb") if k in stage_ms)
         full_ms = stage_ms["vel_full"] + stage_ms["task_full"]
-        emit({"phase": "dual_path", "pipeline": name, "frame": [H, W],
+        emit({"phase": phase, "pipeline": name, "frame": [H, W],
               "window": list(cfg.win_shape), "roi_box": roi["box"].tolist(),
               "region_pct": roi["region_pct"].item(), "stage_ms": stage_ms,
               "vel_speedup": stage_ms["vel_full"] / stage_ms["vel"],
               "roi_speedup": full_ms / roi_ms, **extra, "card": smi_line()})
         if name == "segmentation":
             for key in ("vel", "vel_full"):
-                emit(device_trace(calls[key], stage_ms[key], 1, (), path=f"dual_{key}"))
+                emit(device_trace(calls[key], stage_ms[key], 1, (), path=f"{phase}_{key}"))
     torch.cuda.synchronize()
     launched = {k: v for k, v in _build.LAUNCHES.items() if v}
     if launched:
         raise AssertionError(f"the exact path launched kernels: {launched}")
+
+
+def check_k8(errs: dict, dev) -> None:
+    """K8 against its plain version at every K8_CASES case: the final
+    state, the gray maps and the state after each pair, required equal."""
+    err = 0.0
+    for name in K8_CASES:
+        kernel, plain = k8_case(name, dev)
+        for part, got, ref in zip(("w_final", "mem_gray", "states"), kernel(), plain()):
+            err = max(err, exact_check(got, ref, f"K8 {name} {part}"))
+    errs["device_scan"] = err
+    emit({"phase": "check", "kernel": "device_scan", "cases": list(K8_CASES),
+          "n_substeps": K8_SUBSTEPS, "outputs": ["w_final", "mem_gray", "states"],
+          "max_abs_err": err, "tolerance": 0})
+
+
+def stream_frames(salt: int, dev) -> torch.Tensor:
+    """scripts/bench_stream.py's stream (``make_stream``): a static texture
+    with a 96×96 bright block moving 2 px down and 3 px right a frame,
+    ``[STREAM_T, 480, 640]`` uint8."""
+    t = STREAM_T
+    rng = np.random.default_rng(salt)
+    base = (rng.random((H, W)) * 96).astype(np.uint8)
+    frames = np.broadcast_to(base, (t, H, W)).copy()
+    for i in range(t):
+        y = (120 + 2 * i) % (H - 120)
+        x = (260 + 3 * i + salt) % (W - 120)
+        frames[i, y : y + 96, x : x + 96] = 230
+    return torch.from_numpy(frames).to(dev)
+
+
+def stream_sim() -> tfs.FrameSimConfig:
+    return tfs.FrameSimConfig(m=MEMSIZE, n=MEMSIZE)
+
+
+def drive_stream(dev) -> dict:
+    """``stream_masks`` on bench_stream.py's workload in 'auto': exactly
+    STREAM_LAUNCHES (K8 once, the grasp path's K1–K4), every output equal
+    to the plain route's (K8 on its plain loop too), no host
+    synchronisation; timed and traced.  Then ``stream_masks_chunked`` at
+    STREAM_CHUNK pairs a chunk, equal to the one-shot call, timed."""
+    cfg, sim = bench_cfg(), stream_sim()
+    frames = stream_frames(0, dev)
+
+    def call(f=frames):
+        return tstream.stream_masks(f, cfg, sim)
+
+    launches, out = launched_by(call)
+    if launches != STREAM_LAUNCHES:
+        raise AssertionError(f"stream: launches {launches} != {STREAM_LAUNCHES}")
+    keys = ("masks", "boxes", "any_active", "region_pct", "mem_gray", "w_final")
+    start = time.perf_counter()
+    against_plain(call, out, keys)
+    plain_s = time.perf_counter() - start
+    n = STREAM_T - 1
+    w = out["w_final"]
+    if not (out["masks"].shape == (n, H, W) and out["mem_gray"].shape == (n, H // MEMSIZE,
+                                                                           W // MEMSIZE)
+            and torch.isfinite(w).all() and (w >= 0).all() and (w <= 1).all()):
+        raise AssertionError("the stream's outputs have the wrong shape or range")
+    active = out["any_active"]
+    boxes = out["boxes"]
+    outside = 0
+    for i in torch.nonzero(active).flatten().tolist():
+        x0, y0, x1, y1 = boxes[i].tolist()
+        outside += int(out["masks"][i].sum()) - int(out["masks"][i, y0:y1, x0:x1].sum())
+    if not active.any() or outside:
+        raise AssertionError(f"stream: active {int(active.sum())}, mask outside ROI {outside}")
+    syncs = host_syncs(call)
+    emit({"phase": "stream_path", "frames": STREAM_T, "frame": [H, W],
+          "grid": list(out["mem_gray"].shape[1:]), "n_substeps": sim.n_substeps,
+          "launches_per_call": launches, "host_syncs_per_call": sum(syncs.values()),
+          "host_sync_sites": syncs, "active_pairs": int(active.sum()),
+          "mask_fraction": (out["masks"] > 0).float().mean().item(),
+          "mem_gray_range": [int(out["mem_gray"].min()), int(out["mem_gray"].max())],
+          "plain_route_seconds": plain_s, "equal_to_plain_route": list(keys)})
+    if syncs:
+        raise AssertionError(f"stream synchronised with the host: {syncs}")
+    variants = [(frames,)] + [(stream_frames(v, dev),) for v in (7, 14)]
+    ms, samples = median_ms(call, variants)
+    emit({"phase": "stream_path_time", "pairs": n, "ms_per_call": ms,
+          "pairs_per_s": n / ms * 1e3, "samples_ms": samples, "card": smi_line()})
+    emit(device_trace(call, ms, n, STREAM_LAUNCHES, path="stream"))
+
+    def chunked(f=frames):
+        return tstream.stream_masks_chunked(f, cfg, sim, chunk_pairs=STREAM_CHUNK)
+
+    c_launches, c_out = launched_by(chunked)
+    for key in keys:
+        if not torch.equal(c_out[key], out[key]):
+            raise AssertionError(f"chunked {key} differs from the one-shot call's")
+    c_ms, c_samples = median_ms(chunked, variants)
+    emit({"phase": "stream_chunked", "chunk_pairs": STREAM_CHUNK,
+          "launches_per_call": c_launches, "equal_to_one_shot": list(keys),
+          "ms_per_call": c_ms, "pairs_per_s": n / c_ms * 1e3, "samples_ms": c_samples,
+          "card": smi_line()})
+    return launches
+
+
+def drive_events(dev) -> None:
+    """``stream_masks_from_events`` on the 6×8 device grid: synthetic events
+    of a 2×2-cell box crossing it, binned by the native binner, integrated
+    by the event simulator (plain torch) interval by interval, gating the
+    grasp path on 480×640 frames with the box drawn on the texture; the
+    gate must fire and the ROI cover the box; the launches of the event
+    simulation are the call's minus those of its seg_batch_fast."""
+    gh, gw = H // MEMSIZE, W // MEMSIZE
+    x, y, p, t = generate_synthetic_events(height=gh, width=gw, box_h=2, box_w=2,
+                                           speed_pps=8, duration_s=1.0)
+    frame_t = np.arange(EVENT_FPS + 1, dtype=np.int64) * (1_000_000 // EVENT_FPS)
+    base = texture(H, W)[32 : 32 + H, 32 : 32 + W].astype(np.uint8)
+    frames = np.broadcast_to(base, (len(frame_t), H, W)).copy()
+    y0 = (gh - 2) // 2 * MEMSIZE
+    for i, ts in enumerate(frame_t):
+        gx0 = int(ts / 1e6 * 8)
+        frames[i, y0 : y0 + 2 * MEMSIZE, gx0 * MEMSIZE : (gx0 + 2) * MEMSIZE] = 230
+    frames = torch.from_numpy(frames).to(dev)
+    cfg = dataclasses.replace(bench_cfg(), roi=dataclasses.replace(bench_cfg().roi, thres=20))
+
+    def call():
+        return tstream.stream_masks_from_events(x, y, p, t, frames, frame_t, cfg, (gh, gw))
+
+    launches, out = launched_by(call)
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"event stream: launches {launches} != {EXPECTED_LAUNCHES}")
+    active = out["any_active"]
+    if not active.any():
+        raise AssertionError("the event-driven gate never fired")
+    last = int(torch.nonzero(active).flatten()[-1])
+    bx0, by0, bx1, by1 = out["boxes"][last].tolist()
+    gx0 = int(frame_t[last + 1] / 1e6 * 8) * MEMSIZE
+    if not (bx1 > gx0 - MEMSIZE and bx0 < gx0 + 3 * MEMSIZE and by1 > y0 and by0 < y0 + 160):
+        raise AssertionError(f"the event-gated ROI {out['boxes'][last].tolist()} misses the box")
+    syncs = host_syncs(call)
+    ms, samples = median_ms(call, [()])
+    whole = device_trace(call, ms, len(frame_t) - 1, EXPECTED_LAUNCHES, path="event_stream")
+    seg = device_trace(lambda: seg_batch_fast(out["mem_gate"], frames[:-1], frames[1:], cfg),
+                       ms, len(frame_t) - 1, EXPECTED_LAUNCHES, path="event_stream_seg")
+    n_slices = sum(max(1, -(-int(b - a) // 1000)) for a, b in zip(frame_t[:-1], frame_t[1:]))
+    emit({"phase": "event_stream", "events": int(x.size), "grid": [gh, gw],
+          "pairs": len(frame_t) - 1, "slices": n_slices, "launches_per_call": launches,
+          "active_pairs": int(active.sum()), "last_active_box": [bx0, by0, bx1, by1],
+          "host_syncs_per_call": sum(syncs.values()), "host_sync_sites": syncs,
+          "ms_per_call": ms, "samples_ms": samples,
+          "device_launches": whole.get("device_launches"),
+          "seg_device_launches": seg.get("device_launches"),
+          "event_sim_device_launches": (whole["device_launches"] - seg["device_launches"]
+                                        if "device_launches" in whole and
+                                        "device_launches" in seg else "not measured"),
+          "card": smi_line()})
+    emit(whole)
+
+
+def flag1_cfg():
+    """grasp_sep (FLAG=1, k_max 8, 320×320 region windows, per-region head)
+    at the main path's 640×480, 256×384 head window, memsize 80."""
+    cfg = dataclasses.replace(DATASETS["grasp_sep"], name="grasp_sep640", image_h=H,
+                              image_w=W, window_h=WIN[0], window_w=WIN[1],
+                              warp_radius=RADIUS)
+    return dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, memsize=MEMSIZE))
+
+
+def drive_flag1(dev) -> None:
+    """The FLAG=1 stages (:func:`drive_dual` on ``flag1_cfg``) with two
+    components on the 6×8 state map, whose EXTEND-padded regions overlap."""
+    mem = torch.zeros((H // MEMSIZE, W // MEMSIZE), dtype=torch.uint8, device=dev)
+    mem[2:4, 2:3] = 255
+    mem[2:4, 4:6] = 255
+    drive_dual(dev, flag1_cfg(), mem, phase="flag1_stages")
 
 
 def tree_adds(win: int) -> int:
@@ -846,22 +1088,29 @@ def check_kernels(dev) -> dict:
     return errs
 
 
+def kernel_entry(launches: dict, errs: dict, entries: list, key: str, kernel, plain,
+                 library, nbytes: float, flops: float, batch: int, plain_iters: int = 5,
+                 **extra) -> None:
+    """Time ``kernel``, its ``plain`` version and the ``library`` call (or
+    None) and append the kernel's line of the ``kernels`` summary, with its
+    bound from ``nbytes`` and ``flops``, to ``entries``."""
+    bms, by = bound_ms(nbytes, flops)
+    e = {"name": key, "route": "cuda", "source": SOURCES[key][0],
+         "replaces": SOURCES[key][1], "launches": launches[key],
+         "max_abs_err": errs[key], "ms": time_ms(kernel),
+         "plain_ms": time_ms(plain, iters=plain_iters, warm=1), "bound_ms": bms,
+         "bound_by": by, "library_ms": time_ms(library) if library else None}
+    e.update(extra)
+    emit({"phase": "kernel_time", "batch": batch, **e})
+    entries.append(e)
+
+
 def kernel_times(launches: dict, errs: dict, dev, prev) -> list[dict]:
     """Each kernel's time at its path's level-0 shapes, beside its bound,
     its plain version's time and, where one exists, the time of one PyTorch
     call computing the same function."""
     entries = []
-
-    def entry(key, kernel, plain, library, nbytes, flops, batch, **extra):
-        bms, by = bound_ms(nbytes, flops)
-        e = {"name": key, "route": "cuda", "source": SOURCES[key][0],
-             "replaces": SOURCES[key][1], "launches": launches[key],
-             "max_abs_err": errs[key], "ms": time_ms(kernel),
-             "plain_ms": time_ms(plain, iters=5, warm=1), "bound_ms": bms,
-             "bound_by": by, "library_ms": time_ms(library) if library else None}
-        e.update(extra)
-        emit({"phase": "kernel_time", "batch": batch, **e})
-        entries.append(e)
+    entry = functools.partial(kernel_entry, launches, errs, entries)
 
     # ── the main path's level-0 shapes, B = 256 ──
     b = B_MAIN
@@ -989,7 +1238,35 @@ def kernel_times(launches: dict, errs: dict, dev, prev) -> list[dict]:
           px * 20 + px * 8, px * (5 * (2 * tree_adds(win) + 1) + 11), b)
     del ad
     torch.cuda.synchronize()
+
     return entries
+
+
+def k8_time(launches: dict, errs: dict, dev) -> dict:
+    """K8's line at the stream's shapes (129 compressed frames on the 6×8
+    grid, n_substeps 1000), its plain version at K8_PLAIN_SUBSTEPS, and its
+    chain bound beside the bytes-and-operations bound."""
+    entries = []
+    entry = functools.partial(kernel_entry, launches, errs, entries)
+    sim = stream_sim()
+    comp = tfs.compress_frames(stream_frames(0, dev).float() / 255.0, sim.m, sim.n)
+    w0 = torch.full(comp.shape[1:], sim.params.w_init, device=dev)
+    pairs, cells = comp.shape[0] - 1, w0.numel()
+    steps = pairs * sim.n_substeps
+    few = dataclasses.replace(sim, n_substeps=K8_PLAIN_SUBSTEPS)
+    # a substep: w·s, 1 − ·, the power, two products, the add and the clamp's
+    # two comparisons; a pair adds the transfer, the modulation and the map
+    entry("device_scan", lambda: tfs.scan_device(comp, sim, w0),
+          lambda: tfs.scan_device_plain(comp, few, w0), None,
+          comp.numel() * 4 + cells * 4 * 2 + pairs * cells, cells * (steps * 8 + pairs * 16),
+          1, plain_iters=1, plain_n_substeps=K8_PLAIN_SUBSTEPS,
+          ms_at_plain_n_substeps=time_ms(lambda: tfs.scan_device(comp, few, w0)),
+          n_substeps=sim.n_substeps, pairs=pairs, cells=cells,
+          chain_bound_ms=steps * K8_STEP_NS * 1e-6,
+          chain_bound_by="pairs × n_substeps dependent steps, each reckoned at "
+                         f"{K8_STEP_NS:.1f} ns (8 float32 operations at 4 cycles and "
+                         "log2 and exp2 at ~18 cycles, 1.98 GHz)")
+    return entries[0]
 
 
 def main() -> None:
@@ -1010,6 +1287,7 @@ def main() -> None:
           "ptxas": _build.BUILD_INFO})
 
     errs = check_kernels(dev)
+    check_k8(errs, dev)
 
     # ── the paths at full width ──
     launches = {}
@@ -1031,9 +1309,15 @@ def main() -> None:
     drive_prediction(dev)
     drive_dual(dev)
 
+    # ── the device simulation: the stream, the event-gated stream, FLAG=1 ──
+    launches.update({k: v for k, v in drive_stream(dev).items() if k == "device_scan"})
+    drive_events(dev)
+    drive_flag1(dev)
+
     # ── per-kernel times at each path's level-0 shapes ──
     _, prev, _ = bench_inputs(B_MAIN, 0, dev)
     kernels = kernel_times(launches, errs, dev, prev)
+    kernels.append(k8_time(launches, errs, dev))
 
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

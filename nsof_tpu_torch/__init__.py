@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of :mod:`nsof_tpu`: the ROI-gated segmentation path,
-the exact Farnebäck with the reference's dual path, and the tracking and
-prediction heads.
+the exact Farnebäck with the reference's dual path, the tracking and
+prediction heads, the device simulation with the streaming pipelines, the
+FLAG=1 separate regions and the Canny gate.
 
 A package of its own beside the JAX one: it imports ``torch`` and numpy,
 never ``jax`` and nothing of ``nsof_tpu``.  Its kernels are CUDA C++ for
@@ -10,7 +11,15 @@ every ``kernel_mode`` of the JAX package's fast Farnebäck has its route.
 Entry points: ``seg_batch_fast`` and the exact path's ``seg_batch``,
 ``seg_step`` and ``seg_stages`` in :mod:`.pipelines.segmentation`;
 ``tracking_batch_fast`` and the rest of :mod:`.pipelines.tracking`;
-``prediction_batch_fast`` and the rest of :mod:`.pipelines.prediction`.
+``prediction_batch_fast`` and the rest of :mod:`.pipelines.prediction`;
+``stream_masks``, ``stream_masks_chunked`` and ``stream_masks_from_events``
+in :mod:`.pipelines.stream` (frames → device scan, kernel K8 → ROI flow);
+``seg_step_separate``, ``tracking_step_separate``,
+``prediction_step_separate`` and ``separate_flow_field`` in
+:mod:`.pipelines.separate`; the device layer, :mod:`.device`
+(``compress_frames``, ``simulate_frames``, ``bin_events`` with the native
+binner of :mod:`.native`, ``simulate_events``, ``simulate_events_stream``);
+``canny_edges`` and ``canny_roi_boxes`` in :mod:`.ops.canny`.
 """
 
 from nsof_tpu_torch.config import DATASETS, PipelineConfig, config_from_dict

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 # the sources, csrc/<name>.cu, one library each
 KERNELS = (
     "crop_windows", "poly_expansion", "update_matrices_sep",
-    "fused_box_update", "update_matrices", "box_solve",
+    "fused_box_update", "update_matrices", "box_solve", "device_scan",
 )
 # one counter per kernel wrapper
 LAUNCH_KEYS = (
@@ -52,6 +52,7 @@ LAUNCH_KEYS = (
     "update_matrices_sep_level",   # K5, the pallas_sep route's update
     "box_solve",                   # K6
     "update_matrices",             # K7, the pallas route's update
+    "device_scan",                 # K8, the stream's device scan (no TPU kernel)
 )
 
 LAUNCHES = {name: 0 for name in LAUNCH_KEYS}
@@ -166,16 +167,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launcher(name: str, n_ptr: int, n_int: int, symbol: str | None = None):
+def launcher(name: str, n_ptr: int, n_int: int, symbol: str | None = None,
+             n_float: int = 0):
     """The ctypes launcher ``symbol`` (default ``nsof_<name>``) in the
-    library of source ``name``: ``n_ptr`` pointers, ``n_int`` ints, then
-    the stream; it returns cudaError_t."""
+    library of source ``name``: ``n_ptr`` pointers, ``n_int`` ints,
+    ``n_float`` floats, then the stream; it returns cudaError_t."""
     symbol = symbol or f"nsof_{name}"
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn

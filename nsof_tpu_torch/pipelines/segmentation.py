@@ -230,18 +230,36 @@ def roi_stages(cfg: PipelineConfig, device=None) -> dict:
     runner calls them: 'cal' maps a ``[gh, gw]`` state map to the ROI
     descriptor, 'vel' computes the windowed flow (negated, masked) and its
     box mask from ``(prev, next, mem, roi)``, 'vel_full' the full-frame
-    flow.  FLAG=1 (``cfg.roi.mode == 1``) raises ``NotImplementedError``."""
-    if cfg.roi.mode == 1:
-        raise NotImplementedError(
-            "FLAG=1 separate regions (cfg.roi.mode == 1) is not ported yet")
+    flow.  ``cfg.roi.mode`` picks the merged FLAG=2 box or, for 1, the
+    separate regions: 'cal' gives their PADDING-extended union and summed
+    ``region_pct``, 'vel' crops the head window from the per-component flow
+    field (:func:`~nsof_tpu_torch.pipelines.separate.separate_flow_field`)."""
+    from nsof_tpu_torch.pipelines.separate import separate_flow_field, union_box
+
     dev = _build.resolve_device(device)
+    h, w = cfg.image_h, cfg.image_w
+    wh, ww = cfg.win_shape
+    separate = cfg.roi.mode == 1
 
     def cal(mem_u8):
-        return roi_ops.first(gate(roi_ops.as_batch(mem_u8, dev), cfg))
+        mem = roi_ops.as_batch(mem_u8, dev)
+        if not separate:
+            return roi_ops.first(gate(mem, cfg))
+        r = roi_ops.roi_boxes(mem, h, w, cfg.roi)
+        box = union_box(r["boxes"], r["valid"], cfg.roi.padding, h, w)
+        pct = (roi_ops.region_percentage(r["boxes"], h, w) * r["valid"]).sum(dim=1)
+        return roi_ops.first({"box": box, "active": r["any_active"],
+                              "origin": roi_ops.window_origin(box, wh, ww, h, w),
+                              "region_pct": pct})
 
     def vel(prev_gray, next_gray, mem_u8, roi):
-        args = roi_ops.as_batch((prev_gray, next_gray, roi), dev)
-        return roi_ops.first(window_flow(*args, cfg))
+        if not separate:
+            args = roi_ops.as_batch((prev_gray, next_gray, roi), dev)
+            return roi_ops.first(window_flow(*args, cfg))
+        ff = separate_flow_field(mem_u8, prev_gray, next_gray, cfg, device=dev)
+        roi = roi_ops.as_batch(roi, dev)
+        flow_win = roi_ops.crop_windows(-ff["flow"][None], *roi["origin"], wh, ww)
+        return roi_ops.first(_in_box(flow_win, roi, cfg))
 
     def vel_full(prev_gray, next_gray):
         return -farneback(prev_gray, next_gray, cfg.fb, device=dev)

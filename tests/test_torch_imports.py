@@ -14,10 +14,15 @@ import torch
 from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import DATASETS
 from nsof_tpu_torch.ops import farneback_fast as tff
+from nsof_tpu_torch.device import event_sim as tev
+from nsof_tpu_torch.device import frame_sim as tfs
+from nsof_tpu_torch.ops import canny as tcanny
 from nsof_tpu_torch.ops import roi as troi
 from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
 from nsof_tpu_torch.pipelines import prediction as tpred
 from nsof_tpu_torch.pipelines import segmentation as tseg
+from nsof_tpu_torch.pipelines import separate as tsep
+from nsof_tpu_torch.pipelines import stream as tstream
 from nsof_tpu_torch.pipelines import tracking as ttrk
 from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast
 
@@ -47,6 +52,8 @@ def test_import_leaves_jax_out():
         "import nsof_tpu_torch, nsof_tpu_torch.pipelines.segmentation\n"
         "import nsof_tpu_torch.pipelines.tracking, nsof_tpu_torch.pipelines.prediction\n"
         "import nsof_tpu_torch.ops.farneback_fast, nsof_tpu_torch._build\n"
+        "import nsof_tpu_torch.device, nsof_tpu_torch.native, nsof_tpu_torch.ops.canny\n"
+        "import nsof_tpu_torch.pipelines.stream, nsof_tpu_torch.pipelines.separate\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'nsof_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -85,14 +92,43 @@ ENTRY_POINTS = {
     "prediction_step_full":
         lambda c, m, f, g, **kw: tpred.prediction_step_full(f[0], f[0], g[0], c, **kw),
     "prediction_stages": lambda c, m, f, g, **kw: tpred.prediction_stages(c, **kw),
+    "separate_flow_field":
+        lambda c, m, f, g, **kw: tsep.separate_flow_field(m[0], f[0], f[0], c, **kw),
+    "seg_step_separate":
+        lambda c, m, f, g, **kw: tsep.seg_step_separate(m[0], f[0], f[0], c, **kw),
+    "tracking_step_separate":
+        lambda c, m, f, g, **kw: tsep.tracking_step_separate(m[0], f[0], f[0], c, **kw),
+    "prediction_step_separate":
+        lambda c, m, f, g, **kw: tsep.prediction_step_separate(m[0], f[0], f[0], g[0], c, **kw),
+    "canny_edges": lambda c, m, f, g, **kw: tcanny.canny_edges(m[0], **kw),
+    "canny_roi_boxes": lambda c, m, f, g, **kw: tcanny.canny_roi_boxes(m[0], 160, 160, 10, 10,
+                                                                       **kw),
+    "compress_frames": lambda c, m, f, g, **kw: tfs.compress_frames(f, 10, 10, **kw),
+    "simulate_frames": lambda c, m, f, g, **kw: tfs.simulate_frames(m.repeat(2, 0), SIM, **kw),
+    "simulate_frames_fast":
+        lambda c, m, f, g, **kw: tfs.simulate_frames_fast(m.repeat(2, 0), SIM, **kw),
+    "simulate_events": lambda c, m, f, g, **kw: tev.simulate_events(BINNED, **kw),
+    "simulate_events_stream": lambda c, m, f, g, **kw: tev.simulate_events_stream(
+        *([np.array([1, 2])] * 3), np.array([0, 1500]), **kw),
+    "stream_masks": lambda c, m, f, g, **kw: tstream.stream_masks(f.repeat(2, 0), c, SIM, **kw),
+    "stream_masks_chunked":
+        lambda c, m, f, g, **kw: tstream.stream_masks_chunked(f.repeat(3, 0), c, SIM, 1, **kw),
+    "stream_masks_from_events": lambda c, m, f, g, **kw: tstream.stream_masks_from_events(
+        *([np.array([1, 2])] * 3), np.array([0, 1500]), f.repeat(2, 0), [0, 2000], c,
+        (16, 16), **kw),
 }
+# the device and stream entry points on the 16×16 grid of 160×160 frames
+SIM = tfs.FrameSimConfig(m=10, n=10, n_substeps=2)
+BINNED = tev.bin_events(np.array([1, 2]), np.array([1, 2]), np.array([1, 0]),
+                        np.array([0, 1500]), 1000, 16, 16, use_native=False)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_point_needs_cuda_or_cpu(monkeypatch, name):
-    """Each entry point of the exact path and of the tracking and
-    prediction paths raises without a CUDA device unless it is given
-    ``device='cpu'``, and then runs."""
+    """Each entry point of the exact path, the tracking and prediction
+    paths, the device layer, the stream, the separate regions and the Canny
+    gate raises without a CUDA device unless it is given ``device='cpu'``,
+    and then runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = DATASETS["tabletennis"]
     args = (cfg, np.zeros((1, 16, 16), np.uint8), np.zeros((1, 160, 160), np.uint8),
@@ -141,6 +177,8 @@ def test_wrappers_raise_without_kernel_library(cuda_device, monkeypatch, tmp_pat
         lambda: tff.update_matrices(img, img, lvl0, lvl1, bsc, 3, separable=True),
         lambda: tff.update_matrices(img, img, lvl0, lvl1, bsc, 3),
         lambda: tff.box_solve(lvl0, 3),
+        lambda: tfs.scan_device(torch.zeros((3, 6, 8), device=dev), tfs.FrameSimConfig(),
+                                torch.zeros((6, 8), device=dev)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError):

@@ -14,7 +14,9 @@ types at the grasp (15, 3), tabletennis (4, 5), fused-route limit (17, 7)
 and widest (63, 7) (winsize, radius), on a canvas with slack rows and
 columns.  K7: radius 1, 3, 8 and 37 on a 97×131 level, B = 2 and 1, with
 flows at integers, ±r and beyond, ±0, tiny values and one ulp either side
-of each integer.
+of each integer.  K8 (the device scan): the 6×8, 12×16 and a ragged 7×13
+grid, the modulation's dead zone and powf drives, at n_substeps 1000 (the
+final state, the gray maps and the per-pair states).
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (the card's machine has no jax, which
@@ -25,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (K1_CASES, K2_CASES, K3_CASES, K4_CASES, K7_CASES, k2_case, k3_case,
-                        k7_case)
+from chip_smoke import (K1_CASES, K2_CASES, K3_CASES, K4_CASES, K7_CASES, K8_CASES, k2_case,
+                        k3_case, k7_case, k8_case)
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 
@@ -126,3 +128,12 @@ def test_update_matrices_sep_refuses_wider_radius(cuda_device):
     with pytest.raises(RuntimeError, match="failed to launch"):
         tff.update_matrices(z, z, r0, r1p, tff.border_scale(h, w, str(cuda_device)), r,
                             separable=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K8_CASES))
+def test_device_scan_kernel_matches_plain(cuda_device, name):
+    kernel, plain = k8_case(name, cuda_device)
+    for got, ref in zip(kernel(), plain()):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.equal(got, ref)

@@ -4,7 +4,9 @@ The image-scale labelling (``label_components_sweep``) on CUDA equals the
 CPU version, and ``tracking_batch_fast`` / ``prediction_batch_fast`` in
 ``kernel_mode='fused'`` (K1–K4) equal the plain route (every kernel
 wrapper on its plain version, ``chip_smoke.plain_route``) on a 120×160
-grasp cut with a 64×96 window, B = 4.
+grasp cut with a 64×96 window, B = 4.  ``stream_masks`` in 'auto' (K8 and
+K1–K4) and ``stream_masks_chunked`` equal the plain route on 9 frames of
+that cut with a textured block moving (2, 3) px a frame, n_substeps 1000.
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_paths_cuda.py`` (the card's machine has no jax, which the
@@ -20,6 +22,9 @@ import torch
 from chip_smoke import bgr, plain_route
 from nsof_tpu_torch.config import DATASETS
 from nsof_tpu_torch.ops import components as tcc
+from nsof_tpu_torch import _build
+from nsof_tpu_torch.device.frame_sim import FrameSimConfig
+from nsof_tpu_torch.pipelines import stream as tstream
 from nsof_tpu_torch.pipelines.prediction import prediction_batch_fast
 from nsof_tpu_torch.pipelines.tracking import tracking_batch_fast
 
@@ -92,3 +97,26 @@ def test_prediction_fused_equals_plain_route(cuda_device):
     for key in ("pred", "flow", "box", "any_active"):
         assert torch.equal(got[key], ref[key]), key
     assert (got["pred"] != frame).any()
+
+
+@pytest.mark.cuda
+def test_stream_kernels_equal_plain_route(cuda_device):
+    rng = np.random.default_rng(3)
+    base = (rng.random((H, W)) * 96).astype(np.uint8)
+    frames = np.broadcast_to(base, (9, H, W)).copy()
+    for i in range(9):
+        frames[i, 20 + 2 * i : 60 + 2 * i, 30 + 3 * i : 70 + 3 * i] = 230
+    frames = torch.from_numpy(frames).to(cuda_device)
+    cfg = dataclasses.replace(_cfg(), roi=dataclasses.replace(_cfg().roi, thres=240))
+    sim = FrameSimConfig(m=MEMSIZE, n=MEMSIZE)
+    _build.reset_launches()
+    got = tstream.stream_masks(frames, cfg, sim)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["device_scan"] == 1 and _build.LAUNCHES["crop_windows"] == 2
+    assert got["any_active"].all() and got["masks"].any()
+    chunked = tstream.stream_masks_chunked(frames, cfg, sim, chunk_pairs=3)
+    with plain_route():
+        ref = tstream.stream_masks(frames, cfg, sim)
+    for key, val in ref.items():
+        assert torch.equal(got[key], val), key
+        assert torch.equal(chunked[key], val), key

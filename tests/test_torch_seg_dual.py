@@ -156,6 +156,12 @@ def test_seg_stages_match_jax(runs):
 
 
 def test_roi_stages_refuse_separate_regions():
+    """FLAG=1 (``cfg.roi.mode == 1``) is served now: 'cal' gives the
+    separate regions' union box and summed percentage, as the JAX stages
+    do (the full mode-1 parity is in tests/test_torch_separate.py)."""
     cfg = dataclasses.replace(small_cfg(), roi=dataclasses.replace(small_cfg().roi, mode=1))
-    with pytest.raises(NotImplementedError):
-        tseg.roi_stages(config_from_dict(dataclasses.asdict(cfg)), device="cpu")
+    mem = small_inputs()[0][2]
+    ref = jseg.roi_stages(cfg)["cal"](mem)
+    got = tseg.roi_stages(config_from_dict(dataclasses.asdict(cfg)), device="cpu")["cal"](mem)
+    for key in ("box", "active", "region_pct"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), err_msg=key)
