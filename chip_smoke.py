@@ -45,6 +45,27 @@ frames a call, a 6×8 device grid, n_substeps 1000, the grasp path):
 - the FLAG=1 stages: :func:`drive_dual` on grasp_sep at 640×480 with two
   components whose regions overlap.
 
+Then the entry points a user calls, at 640×480 and 480×640:
+
+- ``engine``: ``BatchingEngine`` (max_batch 128, default buckets,
+  warmed up) serving 512 requests of the main path's workload from 16
+  threads, each result equal bit for bit to the direct ``seg_batch_fast``
+  of the padded batch it went in, K1–K4 launched as the main path's a
+  dispatch; requests per second, p50/p99 latency, the host syncs of a
+  dispatch, the device-resident B = 128 batch and the parts of one
+  dispatch (stacking into pinned memory, upload, device, download);
+- ``serve``: the demo server on a free port; ``/api/flow`` on 480×640 PNG
+  pairs of the stream's moving block (K8 once and K1–K4 a request) equal
+  to the direct ``stream_masks`` and ``seg_step``, ``/api/segment``, a
+  JPEG payload refused with 400; ms per request;
+- ``runner``: ``run_segmentation``, ``run_tracking``, ``run_prediction``
+  on a 9-frame ``SceneData`` gated by the stream's state maps, their CSVs
+  in the reference schemas, their results equal to the stages called
+  directly, no kernel launched;
+- ``cli``: ``python -m nsof_tpu_torch.cli stream`` and ``flow`` in
+  processes of their own on a folder of PNG frames, their outputs equal
+  to ``stream_masks_chunked`` and the exact Farnebäck's flow image.
+
 Last, each kernel is timed at its path's level-0 shapes beside its bound
 and its plain version (K7 also at radius 8; K8 at the stream's shapes,
 its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound).
@@ -59,14 +80,20 @@ script exits with code 1 before printing any result.
 
 from __future__ import annotations
 
+import base64
 import collections
 import contextlib
 import dataclasses
 import functools
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 
 import numpy as np
@@ -74,17 +101,25 @@ import torch
 
 from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import DATASETS
+from nsof_tpu_torch.data.scenes import SceneData
 from nsof_tpu_torch.device import frame_sim as tfs
 from nsof_tpu_torch.device.model import DEFAULT_PARAMS
 from nsof_tpu_torch.device.synthetic import generate_synthetic_events
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
-from nsof_tpu_torch.ops.farneback import _gaussian_blur_kernel, _poly_exp_coeffs
+from nsof_tpu_torch.ops.farneback import PRESETS, _gaussian_blur_kernel, _poly_exp_coeffs
+from nsof_tpu_torch.ops.farneback import farneback
 from nsof_tpu_torch.pipelines.prediction import (prediction_batch_fast, prediction_ssim,
                                                  prediction_stages)
+from nsof_tpu_torch.pipelines import runner as trunner
 from nsof_tpu_torch.pipelines import stream as tstream
-from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast, seg_stages
+from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast, seg_stages, seg_step
 from nsof_tpu_torch.pipelines.tracking import tracking_batch_fast, tracking_stages
+from nsof_tpu_torch.serve.app import make_server
+from nsof_tpu_torch.serve.engine import BatchingEngine
+from nsof_tpu_torch.utils import reporting
+from nsof_tpu_torch.utils.flow_viz import flow_to_image
+from nsof_tpu_torch.utils.png import decode_png, encode_png
 
 H, W, MEMSIZE = 480, 640, 80
 WIN = (256, 384)
@@ -179,6 +214,19 @@ K8_PLAIN_SUBSTEPS = 100
 # the event-gated stream: a 2×2-cell box crossing the 6×8 grid at 8 cells
 # a second for 1 s, frames at 25 fps
 EVENT_FPS = 25
+# the serving engine: ENGINE_REQUESTS single-pair requests of the main
+# path's workload from ENGINE_THREADS client threads, max_batch
+# ENGINE_MAX_BATCH with the default buckets (1, 2, 4, ..., 128)
+ENGINE_MAX_BATCH = 128
+ENGINE_REQUESTS = 512
+ENGINE_THREADS = 16
+# the demo server's /api/flow requests; the frames of the runner's scene and
+# of the CLI's folder (SCENE_FRAMES - 2 frame pairs a scene)
+SERVE_FLOWS = 3
+SCENE_FRAMES = 9
+# extra arguments of the CLI runs (a CPU rehearsal passes --device cpu)
+CLI_ARGS: list[str] = []
+ROOT = pathlib.Path(__file__).resolve().parent
 # one dependent step of K8 as reckoned for its chain bound: 8 float32
 # operations at 4 cycles and the two special-function operations (log2,
 # exp2) any powf needs at ~18 cycles, at the H100 SXM's 1.98 GHz boost clock
@@ -977,6 +1025,398 @@ def drive_flag1(dev) -> None:
     drive_dual(dev, flag1_cfg(), mem, phase="flag1_stages")
 
 
+def engine_requests(n: int) -> list[tuple]:
+    """``n`` single-pair requests of the main path's workload as host
+    arrays: bench.py's texture at six offsets in turn, each moved by
+    (2, -1) px, and a 6×8 state map with a 2×2 block active at a seeded
+    place."""
+    base = texture(H, W)
+    pairs = [(np.ascontiguousarray(base[16 + v : 16 + v + H, 16 : 16 + W].astype(np.uint8)),
+              np.ascontiguousarray(base[18 + v : 18 + v + H, 15 : 15 + W].astype(np.uint8)))
+             for v in range(6)]
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i in range(n):
+        mem = np.zeros((H // MEMSIZE, W // MEMSIZE), np.uint8)
+        y, x = rng.integers(0, H // MEMSIZE - 1), rng.integers(0, W // MEMSIZE - 1)
+        mem[y : y + 2, x : x + 2] = 255
+        reqs.append((mem, *pairs[i % 6]))
+    return reqs
+
+
+def engine_breakdown(eng: BatchingEngine, reqs: list, dev) -> dict:
+    """Host-clock ms of the parts of one full dispatch (ENGINE_MAX_BATCH
+    requests), each ended by a synchronisation, median of 5: the requests
+    stacked into pinned memory, their upload, seg_batch_fast, the outputs'
+    download; and the engine's whole dispatch (``_execute``) beside them,
+    with its results dropped at once and with them kept, as callers keep
+    theirs (the outputs come back in pinned memory, which a kept result
+    holds, so the next dispatch must allocate anew)."""
+    cols = [[r[j] for r in reqs[:ENGINE_MAX_BATCH]] for j in range(3)]
+    pinned = [torch.empty((len(c),) + c[0].shape, dtype=torch.uint8, pin_memory=True)
+              for c in cols]
+    parts = collections.defaultdict(list)
+    kept = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c, buf in zip(cols, pinned):
+            np.stack(c, out=buf.numpy())
+        t1 = time.perf_counter()
+        args = [buf.to(dev, non_blocking=True) for buf in pinned]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = seg_batch_fast(*args, eng.cfg)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        eng._execute(*cols)
+        t5 = time.perf_counter()
+        kept.append(eng._execute(*cols))
+        t6 = time.perf_counter()
+        for name, dt in (("stack_pinned", t1 - t0), ("upload", t2 - t1), ("device", t3 - t2),
+                         ("download", t4 - t3), ("dispatch", t5 - t4),
+                         ("dispatch_results_kept", t6 - t5)):
+            parts[name].append(dt * 1e3)
+    up = sum(b.numel() for b in pinned)
+    down = sum(v.numel() * v.element_size() for v in host.values())
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    return {"batch": ENGINE_MAX_BATCH, "ms": med, "upload_bytes": up, "download_bytes": down,
+            "upload_gb_per_s": up / med["upload"] / 1e6,
+            "download_gb_per_s": down / med["download"] / 1e6,
+            "requests_per_s_bound": ENGINE_MAX_BATCH / med["dispatch"] * 1e3}
+
+
+def drive_engine(dev) -> None:
+    """The batching engine on the main path's workload: max_batch
+    ENGINE_MAX_BATCH, default buckets, warmed up; ENGINE_REQUESTS requests
+    from ENGINE_THREADS threads, each result equal bit for bit to the
+    direct ``seg_batch_fast`` of the padded batch it was dispatched in;
+    K1–K4 launched EXPECTED_LAUNCHES times a dispatch; host
+    synchronisations of one dispatch; requests a second and p50/p99
+    latency, beside the device-resident batch's time and the parts of one
+    dispatch."""
+    cfg = bench_cfg()
+    eng = BatchingEngine(cfg, max_batch=ENGINE_MAX_BATCH)
+    try:
+        start = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - start
+        # record each dispatch's futures and its padded batch on the device
+        records = []
+        dispatch, run = eng._dispatch, eng._run
+
+        def recording_dispatch(batch):
+            records.append({"futures": [item[3] for item in batch],
+                            "start": time.perf_counter()})
+            dispatch(batch)
+            records[-1]["end"] = time.perf_counter()
+
+        def recording_run(m, p, n):
+            records[-1]["inputs"] = (m, p, n)
+            records[-1]["run_start"] = time.perf_counter()
+            out = run(m, p, n)
+            records[-1]["run_end"] = time.perf_counter()
+            return out
+
+        eng._dispatch, eng._run = recording_dispatch, recording_run
+        reqs = engine_requests(ENGINE_REQUESTS)
+        futs = [None] * len(reqs)
+        sent = [0.0] * len(reqs)
+        done = [0.0] * len(reqs)
+        per_client = len(reqs) // ENGINE_THREADS
+
+        def client(c):
+            for i in range(c * per_client, (c + 1) * per_client):
+                sent[i] = time.perf_counter()
+                fut = eng.submit(*reqs[i])
+                fut.add_done_callback(lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+                futs[i] = fut
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(ENGINE_THREADS)]
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        results = [f.result(timeout=600) for f in futs]
+        wall_s = max(done) - t0
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        eng._dispatch, eng._run = dispatch, run
+        n_disp = len(records)
+        expected = {k: v * n_disp for k, v in EXPECTED_LAUNCHES.items()}
+        if launches != expected:
+            raise AssertionError(f"engine: launches {launches} != {expected} ({n_disp} dispatches)")
+        index = {id(f): i for i, f in enumerate(futs)}
+        checked = 0
+        for rec in records:
+            ref = {k: v.cpu().numpy() for k, v in seg_batch_fast(*rec["inputs"], cfg).items()}
+            for row, fut in enumerate(rec["futures"]):
+                got = results[index[id(fut)]]
+                for k, v in ref.items():
+                    if not np.array_equal(got[k], v[row]):
+                        raise AssertionError(f"engine request {index[id(fut)]}: {k} differs "
+                                             "from the direct seg_batch_fast of its batch")
+                checked += 1
+        if checked != len(reqs) or not all(r["any_active"] for r in results):
+            raise AssertionError(f"engine: {checked} of {len(reqs)} results checked")
+        # each dispatch in the traffic: its start and end, and its parts on
+        # the host clock: stacking and the uploads' enqueue, seg_batch_fast's
+        # enqueue, then the downloads, the one sync and the futures
+        spans = [{"start": (r["start"] - t0) * 1e3, "end": (r["end"] - t0) * 1e3,
+                  "requests": len(r["futures"]),
+                  "stack_upload_ms": (r["run_start"] - r["start"]) * 1e3,
+                  "enqueue_ms": (r["run_end"] - r["run_start"]) * 1e3,
+                  "download_sync_results_ms": (r["end"] - r["run_end"]) * 1e3}
+                 for r in records]
+        del records
+        syncs = host_syncs(lambda: eng.submit(*reqs[0]).result(timeout=60))
+        lat = np.array([d - s for s, d in zip(sent, done)]) * 1e3
+        resident, _ = median_ms(lambda m, p, n: seg_batch_fast(m, p, n, cfg),
+                                [bench_inputs(ENGINE_MAX_BATCH, v, dev) for v in range(3)])
+        emit({"phase": "engine", "requests": len(reqs), "threads": ENGINE_THREADS,
+              "max_batch": ENGINE_MAX_BATCH, "buckets": list(eng.buckets),
+              "warmup_s": warm_s, "stats": eng.stats.as_dict(), "dispatches": n_disp,
+              "launches": launches, "launches_per_dispatch": EXPECTED_LAUNCHES,
+              "host_syncs_per_dispatch": sum(syncs.values()), "host_sync_sites": syncs,
+              "equal_to_direct_batches": checked, "wall_s": wall_s,
+              "dispatch_spans_ms": spans,
+              "requests_per_s": len(reqs) / wall_s,
+              "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                             "p99": float(np.percentile(lat, 99)), "max": float(lat.max())},
+              "device_resident_ms_per_batch": resident,
+              "device_resident_requests_per_s": ENGINE_MAX_BATCH / resident * 1e3,
+              "dispatch_parts": engine_breakdown(eng, reqs, dev), "card": smi_line()})
+    finally:
+        eng.shutdown()
+
+
+def b64png(img: np.ndarray) -> str:
+    return base64.b64encode(encode_png(img)).decode()
+
+
+def http(port: int, path: str, body=None) -> tuple[int, bytes, float]:
+    """One request to the demo server: status, body and ms on the host
+    clock."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    start = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read()
+    return code, raw, (time.perf_counter() - start) * 1e3
+
+
+def served_grasp_cfg():
+    """The server's grasp preset for 480×640 uploads: the whole frame as the
+    window and the device grid snapped to the largest cell size ≤ min(h, w)
+    / 8 that divides both sides, 40 px (a 12×16 grid)."""
+    cfg = dataclasses.replace(DATASETS["grasp"], image_h=H, image_w=W, window_h=None,
+                              window_w=None)
+    return dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, memsize=40))
+
+
+def drive_serve(dev) -> None:
+    """The demo server on the card: GET / and /api/health; SERVE_FLOWS
+    POST /api/flow with 480×640 PNG pairs of the stream's moving block,
+    preset grasp, each launching K8 once and K1–K4 as the stream does, its
+    box, any_active, region_pct and mask equal to the direct stream_masks
+    and seg_step; SERVE_FLOWS POST /api/segment with a PNG holding one
+    bright square; a JPEG payload answered with 400.  Prints each endpoint's ms per request."""
+    srv = make_server(port=0)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        ms = {}
+        code, page, ms["page"] = http(port, "/")
+        if code != 200 or b"nsof_tpu_torch" not in page:
+            raise AssertionError(f"GET / gave {code}")
+        code, raw, ms["health"] = http(port, "/api/health")
+        health = json.loads(raw)
+        if code != 200 or health["device_name"] != torch.cuda.get_device_name(dev):
+            raise AssertionError(f"/api/health gave {code} {health}")
+        frames = stream_frames(0, dev)[: SERVE_FLOWS + 1]
+        host = frames.cpu().numpy()
+        cfg, sim = served_grasp_cfg(), tfs.FrameSimConfig(m=40, n=40)
+        ms["flow"], flows = [], []
+        for i in range(SERVE_FLOWS):
+            body = {"prev": b64png(host[i]), "next": b64png(host[i + 1]), "preset": "grasp"}
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            code, raw, dt = http(port, "/api/flow", body)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            if code != 200:
+                raise AssertionError(f"/api/flow gave {code}: {raw[:300]}")
+            if launches != STREAM_LAUNCHES:
+                raise AssertionError(f"/api/flow: launches {launches} != {STREAM_LAUNCHES}")
+            ms["flow"].append(dt)
+            out = json.loads(raw)
+            s = tstream.stream_masks(frames[i : i + 2], cfg, sim)
+            step = seg_step(s["mem_gray"][0], frames[i], frames[i + 1], cfg)
+            mask = decode_png(base64.b64decode(out["mask"].split(",")[1]), gray=True)
+            if not (out["box"] == step["box"].tolist()
+                    and out["any_active"] == bool(s["any_active"][0])
+                    and out["region_pct"] == float(s["region_pct"][0])
+                    and np.array_equal(mask, s["masks"][0].cpu().numpy())
+                    and np.isfinite(out["mean_mag"])):
+                raise AssertionError(f"/api/flow {i} differs from the direct stream and step")
+            flows.append({k: out[k] for k in ("box", "any_active", "region_pct", "mean_mag")})
+        ms["segment"] = []
+        for i in range(SERVE_FLOWS):
+            img = np.repeat(host[i][..., None], 3, axis=-1)
+            img[100:196, 200 + 10 * i : 296 + 10 * i] = 255
+            code, raw, dt = http(port, "/api/segment", {"image": b64png(img), "prompt": "bright"})
+            seg = json.loads(raw)
+            if code != 200 or seg["backend"] != "BrightnessSegmenter" or seg["n_instances"] != 1:
+                raise AssertionError(f"/api/segment gave {code} {str(seg)[:300]}")
+            ms["segment"].append(dt)
+        jpeg = base64.b64encode(b"\xff\xd8\xff\xe0" + bytes(64)).decode()
+        code, raw, ms["rejected_jpeg"] = http(port, "/api/segment", {"image": jpeg})
+        if code != 400 or "PNG" not in json.loads(raw)["error"]:
+            raise AssertionError(f"a JPEG payload gave {code} {raw[:300]}")
+        emit({"phase": "serve", "frame": [H, W], "preset": "grasp", "grid_cell": 40,
+              "flow_launches_per_request": STREAM_LAUNCHES, "flows": flows,
+              "segment_instances": seg["n_instances"], "health": health, "ms": ms,
+              "flow_ms_median": float(np.median(ms["flow"])),
+              "segment_ms_median": float(np.median(ms["segment"])), "card": smi_line()})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+
+
+def block_masks(t: int) -> np.ndarray:
+    """The GT of stream_frames(0)'s first ``t`` frames: its moving block."""
+    gt = np.zeros((t, H, W), np.uint8)
+    for i in range(t):
+        y, x = (120 + 2 * i) % (H - 120), (260 + 3 * i) % (W - 120)
+        gt[i, y : y + 96, x : x + 96] = 255
+    return gt
+
+
+def drive_runner(dev) -> None:
+    """The scene runners on a SceneData of the stream's first SCENE_FRAMES
+    frames at 640×480 (BGR mixed from the gray, the block as GT), pair t
+    gated by the stream's state map after pair t: each runner writes its
+    CSV and text log; the headers are the reference schemas and hold one
+    row a pair; the masks, boxes and predictions equal the stages called
+    directly; no kernel is launched (the exact path)."""
+    cfg = bench_cfg()
+    frames = stream_frames(0, dev)[:SCENE_FRAMES]
+    mem = tstream.stream_masks(frames, cfg, stream_sim())["mem_gray"]
+    mem = torch.cat([mem[:1], mem]).cpu().numpy()
+    scene = SceneData(cfg, bgr(frames).cpu().numpy(), frames.cpu().numpy(), mem,
+                      block_masks(SCENE_FRAMES), [f"{i:04d}.png" for i in range(SCENE_FRAMES)])
+    n = scene.num_pairs
+    runs = (("segmentation", trunner.run_segmentation, reporting.SEG_COLUMNS),
+            ("tracking", trunner.run_tracking, reporting.OB_COLUMNS),
+            ("prediction", trunner.run_prediction, reporting.PRED_COLUMNS))
+    with tempfile.TemporaryDirectory() as tmp:
+        results = {}
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        for name, run, columns in runs:
+            csv_path, txt_path = pathlib.Path(tmp) / f"{name}.csv", pathlib.Path(tmp) / f"{name}.txt"
+            start = time.perf_counter()
+            results[name] = run(scene, csv_path, txt_path)
+            seconds = time.perf_counter() - start
+            lines = csv_path.read_text().splitlines()
+            if lines[0] != ",".join(columns) or len(lines) != n + 1:
+                raise AssertionError(f"{name}: CSV header {lines[0]!r}, {len(lines) - 1} rows")
+            if len(txt_path.read_text().splitlines()) != n + 1:
+                raise AssertionError(f"{name}: the text log has the wrong length")
+            res = results[name]
+            emit({"phase": "runner", "pipeline": name, "pairs": n, "frame": [H, W],
+                  "window": list(cfg.win_shape), "seconds": seconds,
+                  "timing": {k: v for k, v in res.timing.items() if k != "stage_totals_s"},
+                  "stage_ms_per_pair": {k: v * 1e3 / n
+                                        for k, v in res.timing["stage_totals_s"].items()},
+                  "metrics": res.metrics, "card": smi_line()})
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the runners launched kernels: {launched}")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    seg, trk, prd = seg_stages(cfg), tracking_stages(cfg), prediction_stages(cfg)
+    for i in range(n):
+        m, p, nx = up(mem[i + 1]), frames[i], frames[i + 1]
+        roi = seg["cal"](m)
+        fw, ib = seg["vel"](p, nx, m, roi)
+        full = seg["vel_full"](p, nx)
+        direct = {
+            ("segmentation", "masks"): seg["comb"](seg["task"](fw, ib), roi["box"], roi["origin"]),
+            ("segmentation", "masks_full"): seg["task_full"](full),
+        }
+        box = trk["task"](fw, ib, roi["origin"], roi["active"])
+        box_full = trk["task_full"](full)
+        direct.update({("tracking", "boxes"): box["boxes"],
+                       ("tracking", "boxes_valid"): box["valid"],
+                       ("tracking", "boxes_full"): box_full["boxes"],
+                       ("tracking", "boxes_full_valid"): box_full["valid"]})
+        frame = up(scene.frames_bgr[i + 1])
+        flow = prd["comb"](fw, roi["box"], roi["origin"])
+        direct[("prediction", "preds")] = prd["task"](frame, flow, roi["box"], roi["active"])
+        direct[("prediction", "preds_full")] = prd["task_full"](frame, full)
+        for (name, key), ref in direct.items():
+            if not np.array_equal(getattr(results[name], key)[i], ref.cpu().numpy()):
+                raise AssertionError(f"runner {name}: {key} of pair {i} differs from the stages'")
+
+
+def drive_cli(dev) -> None:
+    """The CLI in a process of its own on a folder of the stream's first
+    SCENE_FRAMES frames as 480×640 PNGs: ``stream --preset grasp``, whose
+    mask files equal stream_masks_chunked's on the card, and ``flow`` on
+    three of the frames, whose images equal the exact Farnebäck's coloured
+    by flow_to_image on the card."""
+    frames = stream_frames(0, dev)[:SCENE_FRAMES]
+    host = frames.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        for sub, count in (("frames", SCENE_FRAMES), ("three", 3)):
+            (d / sub).mkdir()
+            for i in range(count):
+                (d / sub / f"{i}.png").write_bytes(encode_png(host[i]))
+        seconds = {}
+        for name, args in (("stream", ["stream", "--frames", str(d / "frames"), "--preset",
+                                       "grasp", "--out", str(d / "masks")]),
+                           ("flow", ["flow", "--frames", str(d / "three"), "--preset", "grasp",
+                                     "--out", str(d / "flows")])):
+            start = time.perf_counter()
+            subprocess.run([sys.executable, "-m", "nsof_tpu_torch.cli", *args, *CLI_ARGS],
+                           check=True, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            seconds[name] = time.perf_counter() - start
+        # the CLI's grasp preset at the frames' size: the whole frame as the
+        # window, memsize 80 (a 6×8 grid), chunks of 64 pairs
+        cfg = dataclasses.replace(DATASETS["grasp"], image_h=H, image_w=W, window_h=None,
+                                  window_w=None)
+        sim = tfs.FrameSimConfig(m=cfg.roi.memsize, n=cfg.roi.memsize)
+        ref = tstream.stream_masks_chunked(frames, cfg, sim, chunk_pairs=64)["masks"]
+        ref = ref.cpu().numpy()
+        for i in range(SCENE_FRAMES - 1):
+            got = decode_png((d / "masks" / f"mask_{i + 1}.png").read_bytes(), gray=True)
+            if not np.array_equal(got, ref[i]):
+                raise AssertionError(f"CLI stream: mask {i + 1} differs from stream_masks_chunked")
+        for i in range(2):
+            got = decode_png((d / "flows" / f"flow_{i}.png").read_bytes())
+            flow = farneback(frames[i], frames[i + 1], PRESETS["grasp"])
+            if not np.array_equal(got, flow_to_image(flow).cpu().numpy()):
+                raise AssertionError(f"CLI flow: image {i} differs from the direct one")
+    emit({"phase": "cli", "frames": SCENE_FRAMES, "frame": [H, W], "seconds": seconds,
+          "masks_equal": SCENE_FRAMES - 1, "active_masks": int((ref > 0).any(axis=(1, 2)).sum()),
+          "flow_images_equal": 2})
+
+
 def tree_adds(win: int) -> int:
     """Additions of a log-tree window sum of width ``win`` a position, with
     every partial sum computed once."""
@@ -1313,6 +1753,12 @@ def main() -> None:
     launches.update({k: v for k, v in drive_stream(dev).items() if k == "device_scan"})
     drive_events(dev)
     drive_flag1(dev)
+
+    # ── serving, the runners and the CLI ──
+    drive_engine(dev)
+    drive_serve(dev)
+    drive_runner(dev)
+    drive_cli(dev)
 
     # ── per-kernel times at each path's level-0 shapes ──
     _, prev, _ = bench_inputs(B_MAIN, 0, dev)

@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of :mod:`nsof_tpu`: the ROI-gated segmentation path,
 the exact Farnebäck with the reference's dual path, the tracking and
 prediction heads, the device simulation with the streaming pipelines, the
-FLAG=1 separate regions and the Canny gate.
+FLAG=1 separate regions, the Canny gate, the serving engine, the demo
+server, the scene runners and the CLI.
 
 A package of its own beside the JAX one: it imports ``torch`` and numpy,
 never ``jax`` and nothing of ``nsof_tpu``.  Its kernels are CUDA C++ for
@@ -19,7 +20,12 @@ in :mod:`.pipelines.stream` (frames → device scan, kernel K8 → ROI flow);
 :mod:`.pipelines.separate`; the device layer, :mod:`.device`
 (``compress_frames``, ``simulate_frames``, ``bin_events`` with the native
 binner of :mod:`.native`, ``simulate_events``, ``simulate_events_stream``);
-``canny_edges`` and ``canny_roi_boxes`` in :mod:`.ops.canny`.
+``canny_edges`` and ``canny_roi_boxes`` in :mod:`.ops.canny`;
+``BatchingEngine`` in :mod:`.serve.engine` and the demo server in
+:mod:`.serve.app`; ``run_segmentation``, ``run_tracking`` and
+``run_prediction`` over a :class:`~.data.scenes.SceneData` in
+:mod:`.pipelines.runner`; the command line, ``python -m nsof_tpu_torch.cli``.
+Its image I/O is PNG, by its own codec (:mod:`.utils.png`).
 """
 
 from nsof_tpu_torch.config import DATASETS, PipelineConfig, config_from_dict

@@ -1,0 +1,118 @@
+"""Device-honest timing harness: the port's counterpart of
+:mod:`nsof_tpu.utils.timing`.
+
+The reference brackets every stage with ``time.time()`` (module-global lists,
+optical_flow_seg.py:51-59) and, for GPU backends, ``torch.cuda.synchronize``
+(ff_seg.py:95-107).  PyTorch returns before the card finishes, so
+:func:`block_until_ready` synchronises every CUDA device that holds a tensor
+of a result (where the JAX package calls ``jax.block_until_ready``) before a
+clock is read.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import pathlib
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+def _cuda_devices(tree, found: set) -> set:
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            found.add(tree.device)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _cuda_devices(v, found)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _cuda_devices(v, found)
+    return found
+
+
+def block_until_ready(tree):
+    """Wait until the work producing every CUDA tensor of ``tree`` (a
+    tensor, or a dict, list or tuple of them) is done; returns ``tree``."""
+    for dev in _cuda_devices(tree, set()):
+        torch.cuda.synchronize(dev)
+    return tree
+
+
+def time_fn(
+    fn: Callable[..., Any],
+    *args,
+    warmup: int = 2,
+    iters: int = 10,
+    **kwargs,
+) -> dict[str, float]:
+    """Time ``fn(*args)`` with device sync; returns seconds statistics.
+
+    Returns dict with mean/p50/min/max wall seconds per call.
+    """
+    for _ in range(warmup):
+        block_until_ready(fn(*args, **kwargs))
+    samples = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        block_until_ready(fn(*args, **kwargs))
+        samples.append(time.perf_counter() - t0)
+    s = np.asarray(samples)
+    return {
+        "mean_s": float(s.mean()),
+        "p50_s": float(np.percentile(s, 50)),
+        "min_s": float(s.min()),
+        "max_s": float(s.max()),
+        "iters": iters,
+    }
+
+
+class StageTimer:
+    """Accumulates named stage timings (the CSV columns of the reference)."""
+
+    def __init__(self):
+        self.records: dict[str, list[float]] = {}
+
+    def add(self, name: str, seconds: float) -> None:
+        self.records.setdefault(name, []).append(seconds)
+
+    def time(self, name: str):
+        timer = self
+
+        class _Ctx:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                timer.add(name, time.perf_counter() - self.t0)
+                return False
+
+        return _Ctx()
+
+    def summary(self) -> dict[str, float]:
+        return {k: float(np.mean(v)) for k, v in self.records.items()}
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Context manager capturing a ``torch.profiler`` trace of the host and,
+    where there is one, the CUDA device, written as a Chrome trace to
+    ``log_dir/trace.json`` (viewable in Perfetto or ``chrome://tracing``).
+    Yields the profiler, whose ``key_averages()`` sums the time by kernel.
+
+    Usage::
+
+        with profile_trace("traces/seg"):
+            block_until_ready(seg_batch_fast(mem, prev, nxt, cfg))
+    """
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    out = pathlib.Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / "trace.json"))

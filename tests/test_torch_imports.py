@@ -1,6 +1,8 @@
-"""The port stands alone: it imports neither ``jax`` nor ``nsof_tpu``,
-runs on the card unless the caller asks for the CPU, and a kernel wrapper
-on a CUDA tensor launches its kernel or raises."""
+"""The port stands alone: it imports neither ``jax`` nor ``nsof_tpu``, nor
+OpenCV or Pillow at module level (neither is installed beside its GPU
+runtime; only ``data/scenes.py::load_scene`` imports ``cv2``, inside the
+call), runs on the card unless the caller asks for the CPU, and a kernel
+wrapper on a CUDA tensor launches its kernel or raises."""
 
 import ast
 import pathlib
@@ -19,12 +21,17 @@ from nsof_tpu_torch.device import frame_sim as tfs
 from nsof_tpu_torch.ops import canny as tcanny
 from nsof_tpu_torch.ops import roi as troi
 from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
+from nsof_tpu_torch.data.scenes import SceneData
 from nsof_tpu_torch.pipelines import prediction as tpred
+from nsof_tpu_torch.pipelines import runner as trunner
 from nsof_tpu_torch.pipelines import segmentation as tseg
 from nsof_tpu_torch.pipelines import separate as tsep
 from nsof_tpu_torch.pipelines import stream as tstream
 from nsof_tpu_torch.pipelines import tracking as ttrk
 from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast
+from nsof_tpu_torch.serve import app as tapp
+from nsof_tpu_torch.serve.engine import BatchingEngine
+from torch_single_thread import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "nsof_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -46,6 +53,41 @@ def test_no_jax_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def _image_library_imports(path):
+    """(enclosing function or None, root) of each import of ``cv2`` or
+    ``PIL`` in ``path``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.module and child.level == 0:
+                names = [child.module]
+            found.extend((func, n.split(".")[0]) for n in names
+                         if n.split(".")[0] in ("cv2", "PIL"))
+            visit(child, func)
+
+    visit(tree, None)
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_image_library_at_module_level(path):
+    """OpenCV and Pillow are not installed beside the port's GPU runtime: no
+    module imports them when it is imported, and only ``load_scene`` (the
+    reference's JPEG scenes) imports ``cv2`` at all."""
+    found = _image_library_imports(path)
+    rel = str(path.relative_to(ROOT))
+    allowed = [("load_scene", "cv2")] if rel == "nsof_tpu_torch/data/scenes.py" else []
+    assert all(f in allowed for f in found), f"{rel} imports {found}"
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"
@@ -54,7 +96,12 @@ def test_import_leaves_jax_out():
         "import nsof_tpu_torch.ops.farneback_fast, nsof_tpu_torch._build\n"
         "import nsof_tpu_torch.device, nsof_tpu_torch.native, nsof_tpu_torch.ops.canny\n"
         "import nsof_tpu_torch.pipelines.stream, nsof_tpu_torch.pipelines.separate\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'nsof_tpu')]\n"
+        "import nsof_tpu_torch.pipelines.runner, nsof_tpu_torch.serve.engine\n"
+        "import nsof_tpu_torch.serve.app, nsof_tpu_torch.cli, nsof_tpu_torch.utils.timing\n"
+        "import nsof_tpu_torch.utils.flow_viz, nsof_tpu_torch.data.gt_tooling\n"
+        "import nsof_tpu_torch.data.scenes\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'nsof_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -116,7 +163,20 @@ ENTRY_POINTS = {
     "stream_masks_from_events": lambda c, m, f, g, **kw: tstream.stream_masks_from_events(
         *([np.array([1, 2])] * 3), np.array([0, 1500]), f.repeat(2, 0), [0, 2000], c,
         (16, 16), **kw),
+    "BatchingEngine": lambda c, m, f, g, **kw: BatchingEngine(c, max_batch=1, **kw).shutdown(),
+    "DemoService": lambda c, m, f, g, **kw: tapp.DemoService(**kw),
+    "make_server": lambda c, m, f, g, **kw: tapp.make_server(**kw).server_close(),
+    "run_segmentation": lambda c, m, f, g, **kw: trunner.run_segmentation(_scene(c, m, f, g),
+                                                                          **kw),
+    "run_tracking": lambda c, m, f, g, **kw: trunner.run_tracking(_scene(c, m, f, g), **kw),
+    "run_prediction": lambda c, m, f, g, **kw: trunner.run_prediction(_scene(c, m, f, g), **kw),
 }
+
+
+def _scene(cfg, mem, frames, frames_bgr):
+    """A scene of three blank frames (two pairs' inputs, one pair run)."""
+    return SceneData(cfg, frames_bgr.repeat(3, 0), frames.repeat(3, 0), mem.repeat(3, 0), None,
+                     ["0.png", "1.png", "2.png"])
 # the device and stream entry points on the 16×16 grid of 160×160 frames
 SIM = tfs.FrameSimConfig(m=10, n=10, n_substeps=2)
 BINNED = tev.bin_events(np.array([1, 2]), np.array([1, 2]), np.array([1, 0]),
@@ -126,9 +186,10 @@ BINNED = tev.bin_events(np.array([1, 2]), np.array([1, 2]), np.array([1, 0]),
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_point_needs_cuda_or_cpu(monkeypatch, name):
     """Each entry point of the exact path, the tracking and prediction
-    paths, the device layer, the stream, the separate regions and the Canny
-    gate raises without a CUDA device unless it is given ``device='cpu'``,
-    and then runs."""
+    paths, the device layer, the stream, the separate regions, the Canny
+    gate, the scene runners, the batching engine and the demo server raises
+    without a CUDA device unless it is given ``device='cpu'``, and then
+    runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = DATASETS["tabletennis"]
     args = (cfg, np.zeros((1, 16, 16), np.uint8), np.zeros((1, 160, 160), np.uint8),
