@@ -66,9 +66,34 @@ Then the entry points a user calls, at 640×480 and 480×640:
   processes of their own on a folder of PNG frames, their outputs equal
   to ``stream_masks_chunked`` and the exact Farnebäck's flow image.
 
+Then the deep backends, on scripts/bench_deep.py's workload A (480×640
+RGB frames at 1/3 scale, a 256×384 window, grasp at memsize 80, 26 on the
+deep grid; seeded random weights).  Each flow that is timed or served
+runs at PyTorch's defaults, where cuDNN's convolutions may take TF32 on
+Hopper; it is held against the CPU port within DEEP_TF32_TOL.  The same
+flow with TF32 off is held within DEEP_FLOW_TOL:
+
+- ``deep_raft``: RAFT-basic at the raft-things widths, 20 iterations:
+  ``deep_roi_flow_step`` (K1 twice, on RGB windows, equal to the plain
+  route; no host synchronisation in the model or the step; its flow within
+  DEEP_FLOW_TOL (TF32 off) and DEEP_TF32_TOL (the defaults) of the same
+  weights on the CPU) and ``deep_full_flow_step``,
+  each timed, the ROI speed-up, FLOPs a pair, a trace;
+- ``deep_alt``: the same weights with ``corr_mode='alternate'``, within
+  DEEP_ALT_TOL of all-pairs;
+- ``deep_batch``: ``deep_roi_flow_batch`` at B = 8 on RAFT-small and
+  RAFT-basic against the per-sample steps (TF32 off), the batch at the
+  defaults within DEEP_TF32_TOL of the batch with TF32 off, timed; then
+  ``BatchingEngine.for_deep_backend`` (RAFT-small) serving 64 requests from
+  8 threads, each result equal to its batch's direct ``deep_roi_flow_batch``;
+- ``deep_flowformer``: FlowFormer at things_eval's widths, one ROI and one
+  full pair timed, its flow on a cut window within DEEP_FLOW_TOL (TF32
+  off) and DEEP_TF32_TOL (the defaults) of the CPU.
+
 Last, each kernel is timed at its path's level-0 shapes beside its bound
 and its plain version (K7 also at radius 8; K8 at the stream's shapes,
-its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound).
+its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound; K1 also at the
+deep batch's RGB shapes).
 
 Each phase prints one JSON line.  The line before the last is the card's
 name and power limit as ``nvidia-smi`` reports them, the one before that
@@ -83,6 +108,7 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -105,6 +131,8 @@ from nsof_tpu_torch.data.scenes import SceneData
 from nsof_tpu_torch.device import frame_sim as tfs
 from nsof_tpu_torch.device.model import DEFAULT_PARAMS
 from nsof_tpu_torch.device.synthetic import generate_synthetic_events
+from nsof_tpu_torch.models.flowformer import FlowFormer, get_experiment
+from nsof_tpu_torch.models.raft import RAFT, RaftConfig
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 from nsof_tpu_torch.ops.farneback import PRESETS, _gaussian_blur_kernel, _poly_exp_coeffs
@@ -112,6 +140,8 @@ from nsof_tpu_torch.ops.farneback import farneback
 from nsof_tpu_torch.pipelines.prediction import (prediction_batch_fast, prediction_ssim,
                                                  prediction_stages)
 from nsof_tpu_torch.pipelines import runner as trunner
+from nsof_tpu_torch.pipelines.deep_flow import (DeepBackend, deep_full_flow_step,
+                                                deep_roi_flow_batch, deep_roi_flow_step)
 from nsof_tpu_torch.pipelines import stream as tstream
 from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast, seg_stages, seg_step
 from nsof_tpu_torch.pipelines.tracking import tracking_batch_fast, tracking_stages
@@ -226,6 +256,33 @@ SERVE_FLOWS = 3
 SCENE_FRAMES = 9
 # extra arguments of the CLI runs (a CPU rehearsal passes --device cpu)
 CLI_ARGS: list[str] = []
+# the deep backends on scripts/bench_deep.py's workload A: 480×640 RGB
+# frames (1/3 scale), a 256×384 window, grasp at memsize 80 (26 on the deep
+# grid of 18×24 cells, a 3×3-cell block active), six shifted variants;
+# RAFT at 20 iterations, seeded random weights
+DEEP_H, DEEP_W, DEEP_WIN = 480, 640, (256, 384)
+DEEP_ITERS = 20
+DEEP_LAUNCHES = {"crop_windows": 2}
+# the card's flow against the port's on the CPU (float32, no TF32) and the
+# two corr modes against each other on the card, in px: rounding moved
+# these models' flows by 6e-6 to 3e-5 px on the CPU (weights scaled by
+# 1 ± 1.2e-7), and the corr modes by 1.1e-5 (basic) at 20 iterations
+DEEP_FLOW_TOL = 1e-3
+DEEP_ALT_TOL = 1e-4
+# the card's flow at PyTorch's defaults (cuDNN TF32 convolutions: a 10-bit
+# mantissa, rounding of 2^-11 a product), the setting timed and served,
+# against the CPU port's or the card's with TF32 off, in px: read on an
+# H100 at 3.3e-3 (RAFT-basic ROI), 2.1e-2 (RAFT-small's B = 8 batch),
+# 4.0e-3 (RAFT-basic's) and 1.2e-2 (FlowFormer's cut), masks all equal;
+# the limit is ≈ 4× the largest reading
+DEEP_TF32_TOL = 8e-2
+DEEP_MASK_EQUAL = 0.995
+# the batched step and its engine: batch, requests, client threads
+DEEP_B = 8
+DEEP_ENGINE_REQUESTS = 64
+DEEP_ENGINE_THREADS = 8
+# FlowFormer against the CPU port on a cut window
+FF_CUT = (128, 192)
 ROOT = pathlib.Path(__file__).resolve().parent
 # one dependent step of K8 as reckoned for its chain bound: 8 float32
 # operations at 4 cycles and the two special-function operations (log2,
@@ -255,6 +312,8 @@ SOURCES = {
                   "nsof_tpu/ops/farneback_fast.py:488", "box_solve_"),
     "update_matrices": ("nsof_tpu_torch/csrc/update_matrices.cu",
                         "nsof_tpu/ops/farneback_fast.py:199", "update_matrices_kernel"),
+    "crop_windows_rgb": ("nsof_tpu_torch/csrc/crop_windows.cu",
+                         "nsof_tpu/ops/roi.py:203", "crop_windows_kernel"),
     "device_scan": ("nsof_tpu_torch/csrc/device_scan.cu",
                     "nsof_tpu/pipelines/stream.py:48 (not a TPU kernel: XLA lax.scan)",
                     "device_scan_kernel"),
@@ -1417,6 +1476,406 @@ def drive_cli(dev) -> None:
           "flow_images_equal": 2})
 
 
+def deep_cfg():
+    return dataclasses.replace(DATASETS["grasp"], name="deep640", image_h=DEEP_H, image_w=DEEP_W,
+                               window_h=DEEP_WIN[0], window_w=DEEP_WIN[1])
+
+
+def deep_inputs(dev):
+    """scripts/bench_deep.py's workload A on the card: the 18×24 state map
+    with a 3×3-cell block active, and six RGB frame variants of one texture,
+    each next frame moved by (2, -1) px from its previous one."""
+    rng = np.random.default_rng(0)
+    base = rng.random((DEEP_H + 64, DEEP_W + 64, 3)).astype(np.float32) * 255
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a.astype(np.uint8))).to(dev)  # noqa: E731
+    prevs = [t(base[16 + v: 16 + v + DEEP_H, 16: 16 + DEEP_W]) for v in range(6)]
+    nxts = [t(base[18 + v: 18 + v + DEEP_H, 15: 15 + DEEP_W]) for v in range(6)]
+    ms = deep_cfg().roi.memsize // 3
+    mem = np.zeros((DEEP_H // ms, DEEP_W // ms), np.uint8)
+    mem[3:6, 4:7] = 255
+    return torch.from_numpy(mem).to(dev), prevs, nxts
+
+
+def deep_model(kind: str):
+    """A deep model with random weights from torch's generator seeded with
+    0: RAFT-basic at the published raft-things widths (its cnet
+    'frozenbatch', as a converted checkpoint runs), RAFT-small, or FlowFormer
+    at things_eval's."""
+    torch.manual_seed(0)
+    if kind == "raft-basic":
+        return RAFT(RaftConfig(cnet_norm="frozenbatch", iters=DEEP_ITERS))
+    if kind == "raft-small":
+        return RAFT(RaftConfig(small=True, corr_radius=3, iters=DEEP_ITERS))
+    return FlowFormer(get_experiment("things_eval").model)
+
+
+def deep_backend(kind: str, dev):
+    """(the card's backend, the same weights as a CPU backend)."""
+    model = deep_model(kind)
+    cpu = copy.deepcopy(model)
+    if kind == "flowformer":
+        return DeepBackend.from_flowformer(model, device=dev), DeepBackend.from_flowformer(
+            cpu, device="cpu")
+    return (DeepBackend.from_raft(model, DEEP_ITERS, device=dev),
+            DeepBackend.from_raft(cpu, DEEP_ITERS, device="cpu"))
+
+
+def f32_convs():
+    """cuDNN convolutions in float32 (PyTorch lets them take TF32 on Hopper
+    by default); matrix products are float32 unless a caller allows TF32."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matrix products are on")
+    return torch.backends.cudnn.flags(enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                                      deterministic=torch.backends.cudnn.deterministic,
+                                      allow_tf32=False)
+
+
+def flops_of(call) -> float:
+    """Floating-point operations of one call, counted by PyTorch's
+    FlopCounterMode from the shapes of its matrix products and
+    convolutions (elementwise work, softmax and gathers not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        call()
+    return float(counter.get_total_flops())
+
+
+def deep_crop_check(frames: torch.Tensor, box: torch.Tensor) -> None:
+    """K1 on RGB frames (a 3-byte element) at the deep window's origins
+    equal to the plain crop, bit for bit."""
+    oys, oxs = troi.window_origin(box, *DEEP_WIN, DEEP_H, DEEP_W)
+    got = troi.crop_windows_batch(frames, oys, oxs, *DEEP_WIN)
+    if not torch.equal(got, troi.crop_windows(frames, oys, oxs, *DEEP_WIN)):
+        raise AssertionError("K1 on the deep RGB crop differs from the plain crop")
+
+
+def flow_err(card: torch.Tensor, cpu: torch.Tensor, tol: float, what: str) -> float:
+    if not torch.isfinite(card).all():
+        raise AssertionError(f"{what}: the card's flow is not finite")
+    err = (card.cpu() - cpu.cpu()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{what}: the card's flow is {err} px from the reference's")
+    return err
+
+
+def drive_deep_raft(dev):
+    """``deep_roi_flow_step`` and ``deep_full_flow_step`` on RAFT-basic:
+    K1 launched twice a ROI step (and equal to the plain crop, the whole
+    step equal to the plain route's); no host synchronisation inside the
+    model or the step; the ROI flow within DEEP_FLOW_TOL of the port's on
+    the CPU for the same pair and weights (float32 convolutions on the
+    card), and within DEEP_TF32_TOL at PyTorch's defaults (TF32
+    convolutions); then timed at the defaults and in float32, with the ROI
+    speed-up, FLOPs a pair and a trace.  Returns the
+    backend and the ROI step's float32 output, for the 'alternate' phase."""
+    cfg = deep_cfg()
+    mem, prevs, nxts = deep_inputs(dev)
+    backend, cpu_backend = deep_backend("raft-basic", dev)
+
+    def roi(m=mem, p=prevs[0], n=nxts[1]):
+        return deep_roi_flow_step(m, p, n, cfg, backend)
+
+    def full(m=mem, p=prevs[0], n=nxts[1]):
+        return deep_full_flow_step(p, n, cfg, backend)
+
+    with f32_convs():
+        launches, out = launched_by(roi)
+        if launches != DEEP_LAUNCHES:
+            raise AssertionError(f"deep_raft: launches {launches} != {DEEP_LAUNCHES}")
+        against_plain(roi, out, ("flow", "mask", "box", "any_active"))
+        deep_crop_check(prevs[0][None], out["box"][None])
+        if not bool(out["any_active"]):
+            raise AssertionError("deep_raft: the ROI is not active")
+        oys, oxs = troi.window_origin(out["box"][None], *DEEP_WIN, DEEP_H, DEEP_W)
+        wins = [troi.crop_windows_batch(x[None], oys, oxs, *DEEP_WIN) for x in (prevs[0], nxts[1])]
+        model_syncs = host_syncs(lambda: backend.apply(*wins))
+        step_syncs = host_syncs(roi)
+        if model_syncs or step_syncs:
+            raise AssertionError(f"deep_raft synchronised: {model_syncs} {step_syncs}")
+        ref = deep_roi_flow_step(mem.cpu(), prevs[0].cpu(), nxts[1].cpu(), cfg, cpu_backend)
+        err = flow_err(out["flow"], ref["flow"], DEEP_FLOW_TOL, "deep_raft ROI")
+        mask_eq = (out["mask"].cpu() == ref["mask"]).float().mean().item()
+        if not (torch.equal(out["box"].cpu(), ref["box"]) and mask_eq >= DEEP_MASK_EQUAL):
+            raise AssertionError(f"deep_raft: box or mask differs from the CPU's ({mask_eq})")
+        full_out = full()
+        if not torch.isfinite(full_out["flow"]).all():
+            raise AssertionError("deep_raft: the full-frame flow is not finite")
+        roi_f32, _ = median_ms(roi, [(mem, prevs[v], nxts[(v + 1) % 6]) for v in range(3)])
+    tf32 = roi()
+    err_tf32 = flow_err(tf32["flow"], ref["flow"], DEEP_TF32_TOL, "deep_raft ROI at the defaults")
+    mask_eq_tf32 = (tf32["mask"].cpu() == ref["mask"]).float().mean().item()
+    if not (torch.equal(tf32["box"].cpu(), ref["box"]) and mask_eq_tf32 >= DEEP_MASK_EQUAL):
+        raise AssertionError(f"deep_raft at the defaults: box or mask differs ({mask_eq_tf32})")
+    variants = [(mem, prevs[v], nxts[(v + 1) % 6]) for v in range(3)]
+    roi_ms, roi_samples = median_ms(roi, variants)
+    full_ms, full_samples = median_ms(full, variants)
+    pad = [torch.zeros((1, DEEP_H, DEEP_W, 3), dtype=torch.uint8, device=dev)] * 2
+    emit({"phase": "deep_raft", "model": "raft-basic (raft-things widths, cnet frozenbatch)",
+          "iters": DEEP_ITERS, "frame": [DEEP_H, DEEP_W], "window": list(DEEP_WIN),
+          "launches_per_roi_step": launches, "host_syncs_model": model_syncs,
+          "host_syncs_roi_step": step_syncs, "roi_box": out["box"].tolist(),
+          "flow_max_abs_err_vs_cpu": err, "tolerance_px": DEEP_FLOW_TOL,
+          "mask_equal_vs_cpu": mask_eq, "max_abs_flow": out["flow"].abs().max().item(),
+          "parity_precision": "float32 (cuDNN TF32 off)",
+          "flow_max_abs_err_vs_cpu_at_defaults": err_tf32,
+          "tolerance_px_at_defaults": DEEP_TF32_TOL, "mask_equal_vs_cpu_at_defaults": mask_eq_tf32,
+          "cudnn_allow_tf32_at_defaults": torch.backends.cudnn.allow_tf32,
+          "roi_ms": roi_ms, "full_ms": full_ms, "roi_speedup": full_ms / roi_ms,
+          "roi_ms_f32_convs": roi_f32, "timing_precision": "PyTorch defaults: cuDNN "
+          "convolutions may use TF32, matrix products float32",
+          "samples_ms": {"roi": roi_samples, "full": full_samples},
+          "gflops_per_pair": {"roi": flops_of(lambda: backend.apply(*wins)) / 1e9,
+                              "full": flops_of(lambda: backend.apply(*pad)) / 1e9},
+          "card": smi_line()})
+    emit(device_trace(roi, roi_ms, 1, ("crop_windows",), path="deep_raft_roi"))
+    return backend, out
+
+
+def drive_deep_alt(dev, backend, allpairs_out) -> None:
+    """The same RAFT-basic weights with ``corr_mode='alternate'``: its ROI
+    flow within DEEP_ALT_TOL of the all-pairs one on the card (float32
+    convolutions), K1 launched twice; timed."""
+    cfg = deep_cfg()
+    mem, prevs, nxts = deep_inputs(dev)
+    model = backend.model
+    saved = model.cfg
+    model.cfg = dataclasses.replace(saved, corr_mode="alternate")
+    try:
+        def roi(m=mem, p=prevs[0], n=nxts[1]):
+            return deep_roi_flow_step(m, p, n, cfg, backend)
+
+        with f32_convs():
+            launches, out = launched_by(roi)
+            err = flow_err(out["flow"], allpairs_out["flow"], DEEP_ALT_TOL, "deep_alt")
+        if launches != DEEP_LAUNCHES:
+            raise AssertionError(f"deep_alt: launches {launches} != {DEEP_LAUNCHES}")
+        ms, samples = median_ms(roi, [(mem, prevs[v], nxts[(v + 1) % 6]) for v in range(3)])
+    finally:
+        model.cfg = saved
+    emit({"phase": "deep_alt", "model": "raft-basic, corr_mode='alternate'",
+          "launches_per_roi_step": launches, "flow_max_abs_err_vs_allpairs": err,
+          "tolerance_px": DEEP_ALT_TOL, "roi_ms": ms, "samples_ms": samples,
+          "card": smi_line()})
+
+
+def deep_batch_inputs(dev):
+    """DEEP_B samples of workload A: variant i % 6 and its next frame, the
+    active block moved right by i % 4 cells."""
+    b = DEEP_B
+    mem, prevs, nxts = deep_inputs(dev)
+    mems = mem[None].repeat(b, 1, 1)
+    for i in range(b):
+        mems[i] = torch.roll(mem, shifts=i % 4, dims=1)
+    return (mems, torch.stack([prevs[i % 6] for i in range(b)]),
+            torch.stack([nxts[(i + 1) % 6] for i in range(b)]))
+
+
+def drive_deep_batch(dev) -> dict:
+    """``deep_roi_flow_batch`` at B = DEEP_B on RAFT-small and RAFT-basic:
+    K1 twice a batch and equal to the plain crop (the batch equal to the
+    plain route's), each sample within DEEP_FLOW_TOL of its own
+    ``deep_roi_flow_step`` (float32 convolutions), the batch at PyTorch's
+    defaults within DEEP_TF32_TOL of the float32 one, timed.  Then
+    ``BatchingEngine.for_deep_backend`` on RAFT-small (max_batch DEEP_B)
+    serving DEEP_ENGINE_REQUESTS requests from DEEP_ENGINE_THREADS threads:
+    each result equal to the direct ``deep_roi_flow_batch`` of the padded
+    batch it went in; requests a second and p50/p99 latency.  Returns the
+    RAFT-basic batch's launch counts."""
+    cfg = deep_cfg()
+    mems, prevs, nxts = deep_batch_inputs(dev)
+    result = {}
+    for kind in ("raft-small", "raft-basic"):
+        backend, _ = deep_backend(kind, dev)
+
+        def call(m=mems, p=prevs, n=nxts):
+            return deep_roi_flow_batch(m, p, n, cfg, backend)
+
+        with f32_convs():
+            launches, out = launched_by(call)
+            if launches != DEEP_LAUNCHES:
+                raise AssertionError(f"deep_batch {kind}: launches {launches}")
+            against_plain(call, out, ("flow", "mask", "box", "any_active"))
+            deep_crop_check(prevs, out["box"])
+            err, mask_eq = 0.0, 1.0
+            for i in range(DEEP_B):
+                one = deep_roi_flow_step(mems[i], prevs[i], nxts[i], cfg, backend)
+                err = max(err, flow_err(out["flow"][i], one["flow"], DEEP_FLOW_TOL,
+                                        f"deep_batch {kind} sample {i}"))
+                mask_eq = min(mask_eq, (out["mask"][i] == one["mask"]).float().mean().item())
+                if not torch.equal(out["box"][i], one["box"]):
+                    raise AssertionError(f"deep_batch {kind}: box {i} differs from its step's")
+            if mask_eq < DEEP_MASK_EQUAL or not out["any_active"].all():
+                raise AssertionError(f"deep_batch {kind}: masks {mask_eq} equal")
+        tf32 = call()
+        err_tf32 = flow_err(tf32["flow"], out["flow"], DEEP_TF32_TOL,
+                            f"deep_batch {kind} at the defaults")
+        mask_eq_tf32 = (tf32["mask"] == out["mask"]).float().mean().item()
+        if not (torch.equal(tf32["box"], out["box"]) and mask_eq_tf32 >= DEEP_MASK_EQUAL):
+            raise AssertionError(f"deep_batch {kind} at the defaults: masks {mask_eq_tf32} equal")
+        ms, samples = median_ms(call, [(mems, prevs, nxts), (mems, nxts, prevs)])
+        emit({"phase": "deep_batch", "model": kind, "batch": DEEP_B, "launches": launches,
+              "flow_max_abs_err_vs_steps": err, "tolerance_px": DEEP_FLOW_TOL,
+              "mask_equal_min_vs_steps": mask_eq,
+              "flow_max_abs_err_at_defaults_vs_tf32_off": err_tf32,
+              "tolerance_px_at_defaults": DEEP_TF32_TOL,
+              "mask_equal_at_defaults_vs_tf32_off": mask_eq_tf32, "ms_per_batch": ms,
+              "pairs_per_s": DEEP_B / ms * 1e3, "samples_ms": samples, "card": smi_line()})
+        result[kind] = (launches, backend)
+    drive_deep_engine(dev, result["raft-small"][1])
+    return result["raft-basic"][0]
+
+
+def drive_deep_engine(dev, backend) -> None:
+    cfg = deep_cfg()
+    mem, prevs, nxts = deep_inputs(dev)
+    eng = BatchingEngine.for_deep_backend(cfg, backend, max_batch=DEEP_B)
+    try:
+        start = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - start
+        records = []
+        dispatch, run = eng._dispatch, eng._run
+
+        def recording_dispatch(batch):
+            records.append({"futures": [item[3] for item in batch]})
+            dispatch(batch)
+
+        def recording_run(m, p, n):
+            records[-1]["inputs"] = (m, p, n)
+            return run(m, p, n)
+
+        eng._dispatch, eng._run = recording_dispatch, recording_run
+        host = [x.cpu().numpy() for x in prevs], [x.cpu().numpy() for x in nxts]
+        grid = mem.cpu().numpy()
+        reqs = [(np.roll(grid, i % 4, axis=1), host[0][i % 6], host[1][(i + 1) % 6])
+                for i in range(DEEP_ENGINE_REQUESTS)]
+        futs, sent, done = [None] * len(reqs), [0.0] * len(reqs), [0.0] * len(reqs)
+        per_client = len(reqs) // DEEP_ENGINE_THREADS
+
+        def client(c):
+            for i in range(c * per_client, (c + 1) * per_client):
+                sent[i] = time.perf_counter()
+                fut = eng.submit(*reqs[i])
+                fut.add_done_callback(lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+                futs[i] = fut
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(DEEP_ENGINE_THREADS)]
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        results = [f.result(timeout=600) for f in futs]
+        wall_s = max(done) - t0
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        eng._dispatch, eng._run = dispatch, run
+        expected = {k: v * len(records) for k, v in DEEP_LAUNCHES.items()}
+        if launches != expected:
+            raise AssertionError(f"deep engine: launches {launches} != {expected}")
+        index = {id(f): i for i, f in enumerate(futs)}
+        checked = 0
+        for rec in records:
+            ref = {k: v.cpu().numpy()
+                   for k, v in deep_roi_flow_batch(*rec["inputs"], cfg, backend).items()}
+            for row, fut in enumerate(rec["futures"]):
+                got = results[index[id(fut)]]
+                for k, v in ref.items():
+                    if not np.array_equal(got[k], v[row]):
+                        raise AssertionError(f"deep engine request {index[id(fut)]}: {k} "
+                                             "differs from its batch's deep_roi_flow_batch")
+                checked += 1
+        if checked != len(reqs):
+            raise AssertionError(f"deep engine: {checked} of {len(reqs)} results checked")
+        lat = np.array([d - s for s, d in zip(sent, done)]) * 1e3
+        emit({"phase": "deep_engine", "model": "raft-small", "requests": len(reqs),
+              "threads": DEEP_ENGINE_THREADS, "max_batch": DEEP_B, "buckets": list(eng.buckets),
+              "mem_grid": list(eng.mem_grid), "warmup_s": warm_s, "stats": eng.stats.as_dict(),
+              "dispatches": len(records), "launches": launches,
+              "equal_to_direct_batches": checked, "wall_s": wall_s,
+              "requests_per_s": len(reqs) / wall_s,
+              "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                             "p99": float(np.percentile(lat, 99)), "max": float(lat.max())},
+              "card": smi_line()})
+    finally:
+        eng.shutdown()
+
+
+def drive_deep_flowformer(dev) -> None:
+    """FlowFormer at things_eval's widths (decoder depth 32): one ROI step
+    (K1 twice) and one full-frame step, timed; the flows finite; on a cut
+    FF_CUT window the card's flow within DEEP_FLOW_TOL of the CPU port's
+    with float32 convolutions and within DEEP_TF32_TOL at PyTorch's
+    defaults; FLOPs a pair."""
+    cfg = deep_cfg()
+    mem, prevs, nxts = deep_inputs(dev)
+    backend, cpu_backend = deep_backend("flowformer", dev)
+
+    def roi(m=mem, p=prevs[0], n=nxts[1]):
+        return deep_roi_flow_step(m, p, n, cfg, backend)
+
+    def full(m=mem, p=prevs[0], n=nxts[1]):
+        return deep_full_flow_step(p, n, cfg, backend)
+
+    ch, cw = FF_CUT
+    cut = [x[None, 100:100 + ch, 160:160 + cw].contiguous() for x in (prevs[0], nxts[1])]
+    with f32_convs():
+        launches, out = launched_by(roi)
+        if launches != DEEP_LAUNCHES:
+            raise AssertionError(f"deep_flowformer: launches {launches}")
+        if not (torch.isfinite(out["flow"]).all() and torch.isfinite(full()["flow"]).all()):
+            raise AssertionError("deep_flowformer: a flow is not finite")
+        card = backend.apply(*cut)
+        ref = cpu_backend.apply(*(x.cpu() for x in cut))
+        err = flow_err(card, ref, DEEP_FLOW_TOL, "deep_flowformer cut")
+    err_tf32 = flow_err(backend.apply(*cut), ref, DEEP_TF32_TOL,
+                        "deep_flowformer cut at the defaults")
+    variants = [(mem, prevs[v], nxts[(v + 1) % 6]) for v in range(3)]
+    roi_ms, roi_samples = median_ms(roi, variants)
+    full_ms, full_samples = median_ms(full, variants)
+    oys, oxs = troi.window_origin(out["box"][None], *DEEP_WIN, DEEP_H, DEEP_W)
+    wins = [troi.crop_windows_batch(x[None], oys, oxs, *DEEP_WIN) for x in (prevs[0], nxts[1])]
+    pad = [torch.zeros((1, DEEP_H, DEEP_W, 3), dtype=torch.uint8, device=dev)] * 2
+    emit({"phase": "deep_flowformer", "model": "flowformer things_eval (decoder depth 32)",
+          "frame": [DEEP_H, DEEP_W], "window": list(DEEP_WIN), "launches_per_roi_step": launches,
+          "cut": list(FF_CUT), "flow_max_abs_err_vs_cpu": err, "tolerance_px": DEEP_FLOW_TOL,
+          "flow_max_abs_err_vs_cpu_at_defaults": err_tf32,
+          "tolerance_px_at_defaults": DEEP_TF32_TOL,
+          "max_abs_flow_cut": card.abs().max().item(), "roi_box": out["box"].tolist(),
+          "roi_ms": roi_ms, "full_ms": full_ms, "roi_speedup": full_ms / roi_ms,
+          "samples_ms": {"roi": roi_samples, "full": full_samples},
+          "gflops_per_pair": {"roi": flops_of(lambda: backend.apply(*wins)) / 1e9,
+                              "full": flops_of(lambda: backend.apply(*pad)) / 1e9},
+          "card": smi_line()})
+
+
+def deep_k1_time(launches: dict, dev) -> dict:
+    """K1 at the deep batch's shapes (B = DEEP_B RGB frames of 480×640,
+    256×384 windows, a 3-byte element) beside its bound, its plain version
+    and ``Tensor.copy_`` of one window slice."""
+    entries = []
+    b = DEEP_B
+    _, frames, _ = deep_batch_inputs(dev)
+    hk, wk = DEEP_WIN
+    y0, x0 = min(100, DEEP_H - hk), min(160, DEEP_W - wk)
+    oy = torch.full((b,), y0, dtype=torch.int32, device=dev)
+    ox = torch.full((b,), x0, dtype=torch.int32, device=dev)
+    got = troi.crop_windows_batch(frames, oy, ox, hk, wk)
+    err = (got.int() - troi.crop_windows(frames, oy, ox, hk, wk).int()).abs().max().item()
+    dst = torch.empty_like(got)
+    kernel_entry({"crop_windows_rgb": launches["crop_windows"]}, {"crop_windows_rgb": err},
+                 entries, "crop_windows_rgb",
+                 lambda: troi.crop_windows_batch(frames, oy, ox, hk, wk),
+                 lambda: troi.crop_windows(frames, oy, ox, hk, wk),
+                 lambda: dst.copy_(frames[:, y0:y0 + hk, x0:x0 + wk]),
+                 2 * b * hk * wk * 3, 0, b, path="deep_roi_flow_batch (RGB, 3-byte elements)")
+    return entries[0]
+
+
 def tree_adds(win: int) -> int:
     """Additions of a log-tree window sum of width ``win`` a position, with
     every partial sum computed once."""
@@ -1760,10 +2219,19 @@ def main() -> None:
     drive_runner(dev)
     drive_cli(dev)
 
+    # ── the deep backends: RAFT, its alternate corr mode, the batch and its
+    #    engine, FlowFormer ──
+    backend, allpairs = drive_deep_raft(dev)
+    drive_deep_alt(dev, backend, allpairs)
+    del backend, allpairs
+    deep_launches = drive_deep_batch(dev)
+    drive_deep_flowformer(dev)
+
     # ── per-kernel times at each path's level-0 shapes ──
     _, prev, _ = bench_inputs(B_MAIN, 0, dev)
     kernels = kernel_times(launches, errs, dev, prev)
     kernels.append(k8_time(launches, errs, dev))
+    kernels.append(deep_k1_time(deep_launches, dev))
 
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

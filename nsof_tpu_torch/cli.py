@@ -5,6 +5,10 @@ Subcommands, with the JAX CLI's flags and defaults plus ``--device``
 
 - ``seg`` / ``track`` / ``predict`` — run a task pipeline on a bundled
   scene (the reference's optical_flow_{seg,ob,prediction}.py mains).
+- ``deep`` — the deep-backend pipelines (RAFT or FlowFormer, 1/3 frames,
+  MEMSIZE/3 gating) on a scene; ``--torch-ckpt`` loads a reference
+  checkpoint, ``--ckpt`` (a training checkpoint) waits for the training
+  slice and raises.
 - ``eventsim`` — event-driven device simulation from HDF5 or the synthetic
   moving-box stream (eventsim/event_mem_sim.py CLI, :334-373); only with
   ``--no-video`` (the video writer is not ported).
@@ -16,8 +20,9 @@ Subcommands, with the JAX CLI's flags and defaults plus ``--device``
 
 Frames are read and written as PNG (:mod:`nsof_tpu_torch.utils.png`); a
 JPEG input raises, and an output the JAX CLI names after a ``.jpg`` input is
-written as ``.png``.  Scene loading (``load_scene``) reads the reference's
-JPEG scenes through OpenCV.
+written as ``.png``.  Scene loading (``load_scene``) reads a scene of PNG
+frames with the port's codec and the reference's JPEG scenes through
+OpenCV.
 
 Run ``python -m nsof_tpu_torch.cli <command> --help`` for options.
 """
@@ -98,6 +103,83 @@ def cmd_task(kind: str, args) -> int:
             _write_png(out_dir / f"pred_{_png_name(scene.names[i + 1])}",
                        np.ascontiguousarray(res.preds[i][..., ::-1]))
     print(json.dumps({"metrics": res.metrics, "timing": res.timing}))
+    return 0
+
+
+def _deep_backend(args):
+    """The ``deep`` subcommand's backend: RAFT (``--small`` / ``--basic``,
+    ``--iters``) or FlowFormer (things_eval), with a reference checkpoint's
+    weights (``--torch-ckpt``) or, without one, random weights from torch's
+    generator seeded with 0."""
+    import torch
+
+    from nsof_tpu_torch.pipelines.deep_flow import DeepBackend
+
+    if args.ckpt:
+        raise NotImplementedError(
+            "--ckpt reads a training checkpoint (an orbax TrainState); the port's training "
+            "slice (train/*, data/flow_datasets.py, the train and validate subcommands) is "
+            "not ported yet: pass a reference .pth with --torch-ckpt")
+    torch.manual_seed(0)
+    if args.backend == "raft":
+        from nsof_tpu_torch.models.raft import RAFT, RaftConfig
+
+        if args.torch_ckpt:
+            from nsof_tpu_torch.models.convert import pretrained_raft
+
+            model = pretrained_raft(args.torch_ckpt, iters=args.iters)
+        else:
+            model = RAFT(RaftConfig(small=args.small, iters=args.iters))
+        return DeepBackend.from_raft(model, iters=args.iters, device=args.device)
+    from nsof_tpu_torch.models.flowformer import FlowFormer, FlowFormerConfig
+
+    if args.torch_ckpt:
+        from nsof_tpu_torch.models.flowformer.convert import pretrained_flowformer
+
+        model = pretrained_flowformer(args.torch_ckpt)
+    else:
+        model = FlowFormer(FlowFormerConfig())
+    return DeepBackend.from_flowformer(model, device=args.device)
+
+
+def cmd_deep(args) -> int:
+    """The deep-backend pipelines (raft_{seg,ob,prediction}.py and the ff_*
+    equivalents): frames resized to 1/3, MEMSIZE/3 gating, RAFT or
+    FlowFormer flow, the task head; one JSON record a frame pair in
+    ``deep_<task>.json``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nsof_tpu_torch.data.scenes import load_scene
+    from nsof_tpu_torch.pipelines import deep_flow as dfl
+
+    backend = _deep_backend(args)
+    scene = load_scene(args.data_root, args.scene, args.max_frames)
+    cfg0 = scene.cfg
+    h3, w3 = cfg0.image_h // 3, cfg0.image_w // 3
+    cfg = dataclasses.replace(cfg0, image_h=h3, image_w=w3, window_h=h3, window_w=w3)
+    step = {
+        "seg": lambda m, p, n, f: dfl.deep_roi_flow_step(m, p, n, cfg, backend),
+        "track": lambda m, p, n, f: dfl.deep_roi_tracking_step(m, p, n, cfg, backend),
+        "predict": lambda m, p, n, f: dfl.deep_roi_prediction_step(m, p, n, f, cfg, backend),
+    }[args.task]
+    out_dir = pathlib.Path(args.out or f"output/{args.scene}_deep_{args.task}")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    frames3 = torch.stack([dfl.resize_third(torch.from_numpy(f).to(backend.device))
+                           for f in scene.frames_bgr]).to(torch.uint8)
+    rows = []
+    for i in range(scene.num_pairs):
+        mem2, _, _ = scene.pair_inputs(i)
+        out = step(mem2, frames3[i], frames3[i + 1], frames3[i + 1])
+        rec = {"frame": scene.names[i + 1], "active": bool(out["any_active"]),
+               "region_pct": float(out["region_pct"])}
+        if args.task == "track":
+            rec["boxes"] = out["boxes"][out["valid"]].cpu().numpy().tolist()
+        rows.append(rec)
+    (out_dir / f"deep_{args.task}.json").write_text(json.dumps(rows, indent=1))
+    print(json.dumps({"pairs": len(rows), "out": str(out_dir)}))
     return 0
 
 
@@ -252,6 +334,20 @@ def main(argv=None) -> int:
         _add_scene_args(p)
         parsers.append(p)
 
+    p = sub.add_parser("deep")
+    _add_scene_args(p)
+    p.add_argument("--task", choices=["seg", "track", "predict"], default="seg")
+    p.add_argument("--backend", choices=["raft", "flowformer"], default="raft")
+    p.add_argument("--ckpt", default=None,
+                   help="training checkpoint (waits for the port's training slice)")
+    p.add_argument("--torch-ckpt", default=None,
+                   help="reference torch checkpoint (raft-things.pth, raft-small.pth, "
+                        "FlowFormer things.pth)")
+    p.add_argument("--small", action="store_true", default=True)
+    p.add_argument("--basic", dest="small", action="store_false")
+    p.add_argument("--iters", type=int, default=20)
+    parsers.append(p)
+
     p = sub.add_parser("eventsim")
     p.add_argument("--h5", default="driving_data.hdf5")
     p.add_argument("--version", type=int, choices=[1, 2], default=1)
@@ -310,6 +406,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.cmd in ("seg", "track", "predict"):
         return cmd_task(args.cmd, args)
+    if args.cmd == "deep":
+        return cmd_deep(args)
     if args.cmd == "eventsim":
         return cmd_eventsim(args)
     if args.cmd == "framesim":

@@ -12,6 +12,7 @@ from arrays needs nothing beyond numpy.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import pathlib
 from typing import Optional
 
@@ -50,6 +51,47 @@ class SceneData:
         return min(len(self.names) - 2, self.mem_gray.shape[0] - 1)
 
 
+def _load_cv2(d: pathlib.Path, fn: str):
+    """One frame's (BGR, gray, thresholded gt mask or None) by OpenCV."""
+    import cv2
+
+    bgr = cv2.imread(str(d / "RGB" / fn))
+    # the reference calls COLOR_RGB2GRAY on the BGR-loaded frame
+    # (optical_flow_seg.py:442) — reproduce exactly
+    gray = cv2.cvtColor(bgr, cv2.COLOR_RGB2GRAY)
+    gt = None
+    gt_path = d / "gtmask" / fn
+    if gt_path.exists():
+        g = cv2.cvtColor(cv2.imread(str(gt_path)), cv2.COLOR_BGR2GRAY)
+        _, g = cv2.threshold(g, 127, 256, cv2.THRESH_BINARY)
+        gt = g
+    return bgr, gray, gt
+
+
+def _load_png(d: pathlib.Path, fn: str):
+    """:func:`_load_cv2` for a PNG frame, by the port's codec: the same
+    arrays OpenCV gives (``imread`` is the decoded RGB reversed)."""
+    import torch
+
+    from nsof_tpu_torch.ops import colorspace as cs
+    from nsof_tpu_torch.utils.png import decode_png
+
+    def bgr_of(path):
+        img = decode_png(path.read_bytes())
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, axis=-1)
+        return np.ascontiguousarray(img[..., 2::-1])
+
+    bgr = bgr_of(d / "RGB" / fn)
+    gray = cs.rgb_to_gray_u8(torch.from_numpy(bgr)).numpy()
+    gt = None
+    gt_path = d / "gtmask" / fn
+    if gt_path.exists():
+        g = cs.bgr_to_gray_u8(torch.from_numpy(bgr_of(gt_path)))
+        gt = cs.threshold_binary(g, 127, 256).numpy()
+    return bgr, gray, gt
+
+
 def load_scene(
     root: str | pathlib.Path,
     name: str,
@@ -59,11 +101,12 @@ def load_scene(
 
     The reference's frames are JPEG, which the port's own codec
     (:mod:`nsof_tpu_torch.utils.png`) does not read, so this function, and
-    only it, imports OpenCV (``cv2``), here inside the call: where OpenCV is
-    not installed it raises ``ImportError``, and a scene is built with
-    :class:`SceneData` from arrays instead.
+    only it, imports OpenCV (``cv2``), here inside the call, when the scene
+    lists a frame that is not PNG: where OpenCV is not installed that
+    raises ``ImportError``.  A scene whose frames (and masks) are PNG loads
+    through the port's codec, with OpenCV's colour conversions
+    (:mod:`nsof_tpu_torch.ops.colorspace`), as OpenCV would load it.
     """
-    import cv2
     import scipy.io
 
     from nsof_tpu_torch.device.model import conductance_to_gray
@@ -79,18 +122,10 @@ def load_scene(
     # @1080x1920); cv2.imread releases the GIL, so decode frames concurrently.
     from concurrent.futures import ThreadPoolExecutor
 
-    def _load_one(fn):
-        bgr = cv2.imread(str(d / "RGB" / fn))
-        # the reference calls COLOR_RGB2GRAY on the BGR-loaded frame
-        # (optical_flow_seg.py:442) — reproduce exactly
-        gray = cv2.cvtColor(bgr, cv2.COLOR_RGB2GRAY)
-        gt = None
-        gt_path = d / "gtmask" / fn
-        if gt_path.exists():
-            g = cv2.cvtColor(cv2.imread(str(gt_path)), cv2.COLOR_BGR2GRAY)
-            _, g = cv2.threshold(g, 127, 256, cv2.THRESH_BINARY)
-            gt = g
-        return bgr, gray, gt
+    if all(pathlib.Path(fn).suffix.lower() == ".png" for fn in imgs):
+        _load_one = functools.partial(_load_png, d)
+    else:
+        _load_one = functools.partial(_load_cv2, d)
 
     with ThreadPoolExecutor(max_workers=16) as pool:
         loaded = list(pool.map(_load_one, imgs))

@@ -2,7 +2,9 @@
 port's counterpart of :mod:`nsof_tpu.serve.engine`.
 
 Concurrent callers submit single frame pairs; a collector thread coalesces
-them into ONE ``seg_batch_fast`` call on the device (kernels K1–K4), so the
+them into ONE ``seg_batch_fast`` call on the device (kernels K1–K4), or with
+:meth:`BatchingEngine.for_deep_backend` one ``deep_roi_flow_batch`` call
+(RAFT or FlowFormer on RGB windows cropped by K1), so the
 card sees large batches and the fixed cost of a call (launches, the host's
 copies, one synchronisation) is amortized across requests instead of paid
 per frame.
@@ -81,16 +83,20 @@ class BatchingEngine:
         frame_channels: int = 0,
         device=None,
         kernel_mode: str = "auto",
+        mem_grid: tuple[int, int] | None = None,
     ):
         """``run_fn(mems [B,gh,gw], prevs, nxts) -> dict of [B,...]``, on
         tensors on ``device``, overrides the default ``seg_batch_fast`` path
         (``warp_radius``, ``kernel_mode``).  ``frame_channels`` declares the
-        submitted frame rank (0 = gray [H, W], 3 = RGB [H, W, 3]) so
-        :meth:`warmup` builds the right dummies.  Runs on ``device``
-        (default the CUDA device; raises ``RuntimeError`` without one unless
-        ``device='cpu'``)."""
+        submitted frame rank (0 = gray [H, W], 3 = RGB [H, W, 3]) and
+        ``mem_grid`` the state maps' (gh, gw) (default the image over
+        ``cfg.roi.memsize``), so :meth:`warmup` builds the right dummies.
+        Runs on ``device`` (default the CUDA device; raises ``RuntimeError``
+        without one unless ``device='cpu'``)."""
         self.device = _build.resolve_device(device)
         self.cfg = cfg
+        self.mem_grid = tuple(mem_grid) if mem_grid is not None else (
+            cfg.image_h // cfg.roi.memsize, cfg.image_w // cfg.roi.memsize)
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
         if buckets is None:
@@ -124,6 +130,31 @@ class BatchingEngine:
         )
         self._thread.start()
 
+    @classmethod
+    def for_deep_backend(
+        cls,
+        cfg: PipelineConfig,
+        backend,
+        max_batch: int = 32,
+        max_wait_ms: float = 8.0,
+        buckets: tuple[int, ...] | None = None,
+    ) -> "BatchingEngine":
+        """Serving engine over the deep ROI-gated step
+        (:func:`nsof_tpu_torch.pipelines.deep_flow.deep_roi_flow_batch`):
+        submit ``(mem_u8 [gh, gw], prev_rgb [H, W, 3], next_rgb)`` per
+        request; the collector coalesces them into one RAFT or FlowFormer
+        batch on the backend's device.  The state maps are on the deep
+        pipelines' grid, MEMSIZE/3 (raft_seg.py:460-464)."""
+        from nsof_tpu_torch.pipelines.deep_flow import deep_roi_flow_batch
+
+        ms_deep = max(cfg.roi.memsize // 3, 1)
+        return cls(
+            cfg, max_batch=max_batch, max_wait_ms=max_wait_ms, buckets=buckets,
+            run_fn=lambda m, p, n: deep_roi_flow_batch(m, p, n, cfg, backend),
+            frame_channels=3, device=backend.device,
+            mem_grid=(cfg.image_h // ms_deep, cfg.image_w // ms_deep),
+        )
+
     # -- public API -----------------------------------------------------
     def submit(
         self, mem_u8: np.ndarray, prev_gray: np.ndarray, next_gray: np.ndarray
@@ -145,7 +176,7 @@ class BatchingEngine:
         the calling thread (deterministic bucket coverage, which queued
         dummy requests could not guarantee under collector timing)."""
         h, w = self.cfg.image_h, self.cfg.image_w
-        gh, gw = h // self.cfg.roi.memsize, w // self.cfg.roi.memsize
+        gh, gw = self.mem_grid
         fshape = (h, w) if not self.frame_channels else (
             h, w, self.frame_channels
         )

@@ -20,8 +20,17 @@ a random texture, made with numpy from a seed:
 
 Measured on the CPU: masks equal, flow images 99.84 % and 99.77 % equal,
 framesim ``w_final`` 8.6e-7 off, eventsim ``w_final`` equal.  Also: JPEG
-frames and ``eventsim`` without ``--no-video`` raise, and the JAX CLI's
-``deep`` is an unknown command.
+frames and ``eventsim`` without ``--no-video`` raise, and ``train`` (the
+training slice, not ported) is an unknown command.
+
+``deep`` on a 600×600 scene of PNG frames (uavnew2's shape, a 15×15 state
+matrix) with one reference-format RAFT-small checkpoint given to both
+CLIs (``--torch-ckpt``, iters 2): the port's ``track`` records (activity,
+region percentage, boxes) equal the JAX CLI's; ``seg`` and ``predict`` give
+the same activity and region percentages; ``--ckpt`` raises naming the
+training slice.  Measured: records equal.  ``load_scene`` reads that
+scene (frames and gray masks as PNG) with the port's codec into the same
+arrays as the JAX package's through OpenCV.
 """
 
 import dataclasses
@@ -31,11 +40,14 @@ import shutil
 
 import numpy as np
 import pytest
+import scipy.io
+import torch
 
 from nsof_tpu import cli as jcli
 from nsof_tpu import config as jconfig
 from nsof_tpu_torch import cli as tcli
 from nsof_tpu_torch import config as tconfig
+from nsof_tpu_torch.models.raft import RAFT, RaftConfig
 from nsof_tpu_torch.utils.png import decode_png, encode_png
 from torch_single_thread import one_torch_thread  # noqa: F401  (autouse)
 
@@ -128,4 +140,69 @@ def test_refusals(frames, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="--no-video"):
         tcli.main(["eventsim", "--synthetic", "--device", "cpu"])
     with pytest.raises(SystemExit):
-        tcli.main(["deep"])
+        tcli.main(["train"])
+
+
+def _png_scene(root):
+    """A uavnew2-shaped scene of PNG frames (600×600, a texture moving (3, 6)
+    px a frame) and a 15×15 state matrix with a 4×5-cell active block."""
+    scene = root / "uavnew2"
+    (scene / "RGB").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    base = (rng.random((640, 640, 3)) * 255).astype(np.uint8)
+    names = [f"{t}.png" for t in range(4)]
+    for t, name in enumerate(names):
+        img = base[10 + 3 * t: 610 + 3 * t, 12 + 6 * t: 612 + 6 * t]
+        (scene / "RGB" / name).write_bytes(encode_png(img))
+    (scene / "gtmask").mkdir()
+    for t, name in enumerate(names):  # gray masks with a soft edge, as JPEG-made ones have
+        gt = np.zeros((600, 600), np.uint8)
+        gt[200 + 3 * t: 320 + 3 * t, 250: 400] = 255
+        gt[199 + 3 * t, 250: 400] = 120 + 10 * t
+        (scene / "gtmask" / name).write_bytes(encode_png(gt))
+    (scene / "imgs.txt").write_text("\n".join(names) + "\n")
+    mem = np.full((15, 15, 4), 1e-12)
+    mem[5:9, 4:9, :] = 1e-5
+    scipy.io.savemat(scene / "constructed_3D_matrix.mat", {"constructed3DMatrix": mem})
+
+
+def test_load_scene_reads_png_scenes_as_opencv_does(tmp_path):
+    """The port's ``load_scene`` reads a PNG scene with its own codec; the
+    JAX package's reads it through OpenCV: every array equal."""
+    from nsof_tpu.data.scenes import load_scene as jax_load_scene
+    from nsof_tpu_torch.data.scenes import load_scene
+
+    _png_scene(tmp_path)
+    got, want = load_scene(tmp_path, "uavnew2"), jax_load_scene(tmp_path, "uavnew2")
+    for key in ("frames_bgr", "frames_gray", "mem_gray", "gt_masks"):
+        np.testing.assert_array_equal(getattr(got, key), np.asarray(getattr(want, key)),
+                                      err_msg=key)
+    assert got.names == want.names and got.num_pairs == want.num_pairs == 2
+
+
+def test_cli_deep_on_a_png_scene(tmp_path, capsys):
+    """The port's ``deep`` against the JAX CLI's on one scene and one
+    reference-format RAFT-small checkpoint (iters 2): the same records
+    (activity, region percentage, tracking boxes); seg and predict run;
+    ``--ckpt`` raises naming the training slice."""
+    _png_scene(tmp_path)
+    torch.manual_seed(0)
+    ckpt = tmp_path / "raft-small.pth"
+    torch.save(RAFT(RaftConfig(small=True, corr_radius=3)).state_dict(), ckpt)
+    common = ["deep", "--data-root", str(tmp_path), "--scene", "uavnew2", "--iters", "2",
+              "--torch-ckpt", str(ckpt)]
+    assert jcli.main(common + ["--task", "track", "--out", str(tmp_path / "jax")]) == 0
+    want = json.loads((tmp_path / "jax" / "deep_track.json").read_text())
+    for task in ("track", "seg", "predict"):
+        out = tmp_path / f"port_{task}"
+        assert tcli.main(common + ["--task", task, "--out", str(out), "--device", "cpu"]) == 0
+        got = json.loads((out / f"deep_{task}.json").read_text())
+        assert len(got) == len(want) == 2 and all(r["active"] for r in got)
+        for g, w in zip(got, want):
+            assert (g["frame"], g["active"], g["region_pct"]) == (
+                w["frame"], w["active"], w["region_pct"])
+            if task == "track":
+                assert g["boxes"] == w["boxes"] and g["boxes"]
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["pairs"] == 2
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tcli.main(common + ["--ckpt", str(tmp_path), "--device", "cpu"])

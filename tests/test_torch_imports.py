@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither ``jax`` nor ``nsof_tpu``, nor
 OpenCV or Pillow at module level (neither is installed beside its GPU
 runtime; only ``data/scenes.py::load_scene`` imports ``cv2``, inside the
-call), runs on the card unless the caller asks for the CPU, and a kernel
-wrapper on a CUDA tensor launches its kernel or raises."""
+call that reads a JPEG scene's frame, ``_load_cv2``), runs on the card
+unless the caller asks for the CPU (the deep backends included), and a
+kernel wrapper on a CUDA tensor launches its kernel or raises."""
 
 import ast
 import pathlib
@@ -22,6 +23,9 @@ from nsof_tpu_torch.ops import canny as tcanny
 from nsof_tpu_torch.ops import roi as troi
 from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
 from nsof_tpu_torch.data.scenes import SceneData
+from nsof_tpu_torch.models.flowformer import FlowFormer, FlowFormerConfig
+from nsof_tpu_torch.models.raft import RAFT, RaftConfig
+from nsof_tpu_torch.pipelines import deep_flow as tdeep
 from nsof_tpu_torch.pipelines import prediction as tpred
 from nsof_tpu_torch.pipelines import runner as trunner
 from nsof_tpu_torch.pipelines import segmentation as tseg
@@ -84,7 +88,7 @@ def test_no_image_library_at_module_level(path):
     reference's JPEG scenes) imports ``cv2`` at all."""
     found = _image_library_imports(path)
     rel = str(path.relative_to(ROOT))
-    allowed = [("load_scene", "cv2")] if rel == "nsof_tpu_torch/data/scenes.py" else []
+    allowed = [("_load_cv2", "cv2")] if rel == "nsof_tpu_torch/data/scenes.py" else []
     assert all(f in allowed for f in found), f"{rel} imports {found}"
 
 
@@ -99,7 +103,9 @@ def test_import_leaves_jax_out():
         "import nsof_tpu_torch.pipelines.runner, nsof_tpu_torch.serve.engine\n"
         "import nsof_tpu_torch.serve.app, nsof_tpu_torch.cli, nsof_tpu_torch.utils.timing\n"
         "import nsof_tpu_torch.utils.flow_viz, nsof_tpu_torch.data.gt_tooling\n"
-        "import nsof_tpu_torch.data.scenes\n"
+        "import nsof_tpu_torch.data.scenes, nsof_tpu_torch.models.raft\n"
+        "import nsof_tpu_torch.models.convert, nsof_tpu_torch.models.flowformer.convert\n"
+        "import nsof_tpu_torch.ops.correlation, nsof_tpu_torch.pipelines.deep_flow\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'nsof_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
@@ -164,6 +170,17 @@ ENTRY_POINTS = {
         *([np.array([1, 2])] * 3), np.array([0, 1500]), f.repeat(2, 0), [0, 2000], c,
         (16, 16), **kw),
     "BatchingEngine": lambda c, m, f, g, **kw: BatchingEngine(c, max_batch=1, **kw).shutdown(),
+    "DeepBackend.from_raft": lambda c, m, f, g, **kw: _raft_backend(**kw),
+    "DeepBackend.from_flowformer": lambda c, m, f, g, **kw: tdeep.DeepBackend.from_flowformer(
+        FlowFormer(FlowFormerConfig(encoder_depth=1, decoder_depth=1)), **kw),
+    "deep_roi_flow_step": lambda c, m, f, g, **kw: tdeep.deep_roi_flow_step(
+        m[0], g[0], g[0], c, _raft_backend(**kw)),
+    "deep_roi_flow_batch": lambda c, m, f, g, **kw: tdeep.deep_roi_flow_batch(
+        m, g, g, c, _raft_backend(**kw)),
+    "deep_full_flow_step": lambda c, m, f, g, **kw: tdeep.deep_full_flow_step(
+        g[0], g[0], c, _raft_backend(**kw)),
+    "BatchingEngine.for_deep_backend": lambda c, m, f, g, **kw: BatchingEngine.for_deep_backend(
+        c, _raft_backend(**kw), max_batch=1).shutdown(),
     "DemoService": lambda c, m, f, g, **kw: tapp.DemoService(**kw),
     "make_server": lambda c, m, f, g, **kw: tapp.make_server(**kw).server_close(),
     "run_segmentation": lambda c, m, f, g, **kw: trunner.run_segmentation(_scene(c, m, f, g),
@@ -171,6 +188,11 @@ ENTRY_POINTS = {
     "run_tracking": lambda c, m, f, g, **kw: trunner.run_tracking(_scene(c, m, f, g), **kw),
     "run_prediction": lambda c, m, f, g, **kw: trunner.run_prediction(_scene(c, m, f, g), **kw),
 }
+
+
+def _raft_backend(**kw):
+    """RAFT-small, one iteration, as a deep backend on ``kw``'s device."""
+    return tdeep.DeepBackend.from_raft(RAFT(RaftConfig(small=True, iters=1)), iters=1, **kw)
 
 
 def _scene(cfg, mem, frames, frames_bgr):
@@ -187,7 +209,8 @@ BINNED = tev.bin_events(np.array([1, 2]), np.array([1, 2]), np.array([1, 0]),
 def test_entry_point_needs_cuda_or_cpu(monkeypatch, name):
     """Each entry point of the exact path, the tracking and prediction
     paths, the device layer, the stream, the separate regions, the Canny
-    gate, the scene runners, the batching engine and the demo server raises
+    gate, the scene runners, the batching engine, the demo server and the
+    deep backends (whose steps run on their backend's device) raises
     without a CUDA device unless it is given ``device='cpu'``, and then
     runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -197,6 +220,18 @@ def test_entry_point_needs_cuda_or_cpu(monkeypatch, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ENTRY_POINTS[name](*args)
     ENTRY_POINTS[name](*args, device="cpu")
+
+
+def test_cli_deep_needs_cuda_or_cpu(monkeypatch, tmp_path):
+    """The CLI's ``deep`` builds its backend on the CUDA device by default
+    and raises without one (``tests/test_torch_cli.py`` runs it with
+    ``--device cpu``)."""
+    from nsof_tpu_torch import cli as tcli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for backend in ("raft", "flowformer"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tcli.main(["deep", "--data-root", str(tmp_path), "--backend", backend])
 
 
 @pytest.fixture

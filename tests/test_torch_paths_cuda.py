@@ -7,6 +7,8 @@ wrapper on its plain version, ``chip_smoke.plain_route``) on a 120×160
 grasp cut with a 64×96 window, B = 4.  ``stream_masks`` in 'auto' (K8 and
 K1–K4) and ``stream_masks_chunked`` equal the plain route on 9 frames of
 that cut with a textured block moving (2, 3) px a frame, n_substeps 1000.
+``deep_roi_flow_batch`` on RAFT-small and RAFT-basic (K1 on RGB windows)
+equals the plain route and, with cuDNN's TF32 off, the CPU within 1e-3 px.
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_paths_cuda.py`` (the card's machine has no jax, which the
@@ -120,3 +122,39 @@ def test_stream_kernels_equal_plain_route(cuda_device):
     for key, val in ref.items():
         assert torch.equal(got[key], val), key
         assert torch.equal(chunked[key], val), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [True, False], ids=["raft-small", "raft-basic"])
+def test_deep_roi_flow_batch_on_the_card(cuda_device, small):
+    """``deep_roi_flow_batch`` on RGB frames of the 120×160 cut (memsize
+    20, so 6 on the deep grid), RAFT at 3 iterations with random weights:
+    K1 launched twice (a 3-byte element), the output equal to the plain
+    route's, and the flow within 1e-3 px of the same model on the CPU with
+    cuDNN's TF32 off."""
+    import copy
+
+    from nsof_tpu_torch.models.raft import RAFT, RaftConfig
+    from nsof_tpu_torch.pipelines import deep_flow as tdf
+
+    torch.manual_seed(0)
+    model = RAFT(RaftConfig(small=small, corr_radius=3 if small else 4, iters=3))
+    cpu = tdf.DeepBackend.from_raft(copy.deepcopy(model), iters=3, device="cpu")
+    card = tdf.DeepBackend.from_raft(model, iters=3, device=cuda_device)
+    mem, prev, nxt = _inputs(3, cuda_device)
+    mem = torch.zeros((3, H // 6, W // 6), dtype=torch.uint8, device=cuda_device)
+    mem[:, 5:9, 8:12] = 255
+    prev, nxt = bgr(prev), bgr(nxt)
+    cfg = _cfg()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _build.reset_launches()
+        out = tdf.deep_roi_flow_batch(mem, prev, nxt, cfg, card)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"crop_windows": 2}
+        with plain_route():
+            ref = tdf.deep_roi_flow_batch(mem, prev, nxt, cfg, card)
+        for k in out:
+            assert torch.equal(out[k], ref[k]), k
+        want = tdf.deep_roi_flow_batch(mem.cpu(), prev.cpu(), nxt.cpu(), cfg, cpu)
+    assert out["any_active"].all()
+    torch.testing.assert_close(out["flow"].cpu(), want["flow"], rtol=0, atol=1e-3)
