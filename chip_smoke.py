@@ -90,6 +90,30 @@ flow with TF32 off is held within DEEP_FLOW_TOL:
   full pair timed, its flow on a cut window within DEEP_FLOW_TOL (TF32
   off) and DEEP_TF32_TOL (the defaults) of the CPU.
 
+Then the training slice (no kernel: its launch counts must stay 0), each
+phase's seconds printed:
+
+- ``train_parity``: one train step of RAFT-small and RAFT-basic at the CPU
+  tests' size (64×96, B = 2, 2 iterations) from the same seeded weights and
+  batch on the card (cuDNN TF32 off) and on the CPU port: loss within
+  1e-5, gradients and updated parameters to the CPU tests' bounds;
+- ``train_raft``: RAFT-basic at the chairs stage of RAFT_STANDARD_STAGES
+  uncut (batch 10, 368×496 crops, 12 iterations) on synthetic pairs at
+  FlyingChairs' 384×512 through the chairs augmentor, at PyTorch's
+  defaults: ``run_stage`` for the warm-up step and its checkpoint (restored
+  equal), then TRAIN_STEPS timed steps as ``train_loop`` runs them; the
+  step and data seconds, losses (finite), host syncs (0 in the step, 1
+  read), launches, busy and idle share (a trace), TFLOP and peak memory;
+- ``train_remat``: that step's gradients with ``remat=True`` against
+  without, and both peak memories;
+- ``train_flowformer``: one ff_chairs step with the twins group, the
+  decoder depth cut to TRAIN_FF_DEPTH and the batch to TRAIN_FF_B: the
+  groups' rates at steps 0 and 1 against the schedule, the loss finite;
+- ``train_cli``: ``python -m nsof_tpu_torch train --stage chairs --small
+  --steps 2`` on a FlyingChairs layout (``.ppm`` frames, ``.flo`` flows),
+  then, side by side, ``deep --ckpt`` on its checkpoint over a PNG scene
+  and ``validate --dataset chairs`` with it, each exit 0.
+
 Last, each kernel is timed at its path's level-0 shapes beside its bound
 and its plain version (K7 also at radius 8; K8 at the stream's shapes,
 its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound; K1 also at the
@@ -150,6 +174,15 @@ from nsof_tpu_torch.serve.engine import BatchingEngine
 from nsof_tpu_torch.utils import reporting
 from nsof_tpu_torch.utils.flow_viz import flow_to_image
 from nsof_tpu_torch.utils.png import decode_png, encode_png
+from nsof_tpu_torch.data.flow_datasets import synthetic_affine_dataset, write_flo
+from nsof_tpu_torch.parallel import train as ptrain
+from nsof_tpu_torch.train import optim as toptim
+from nsof_tpu_torch.train.curriculum import (FLOWFORMER_STAGES, RAFT_STANDARD_STAGES,
+                                             build_stage_items, mixed_batch_iterator, run_stage)
+from nsof_tpu_torch.train.loss import sequence_loss
+from nsof_tpu_torch.train.optim import raft_optimizer
+from nsof_tpu_torch.train.trainer import restore_checkpoint
+from nsof_tpu_torch.utils.ppm import encode_ppm
 
 H, W, MEMSIZE = 480, 640, 80
 WIN = (256, 384)
@@ -283,6 +316,18 @@ DEEP_ENGINE_REQUESTS = 64
 DEEP_ENGINE_THREADS = 8
 # FlowFormer against the CPU port on a cut window
 FF_CUT = (128, 192)
+# the training slice: RAFT-basic at the chairs stage of RAFT_STANDARD_STAGES
+# (batch 10, 368×496 crops, 12 iterations) on TRAIN_SAMPLES synthetic pairs
+# at FlyingChairs' native size; TRAIN_STEPS timed steps after a warm-up;
+# FlowFormer's ff_chairs stage cut to decoder depth TRAIN_FF_DEPTH (of 12)
+# and batch TRAIN_FF_B (of 8); the gradient bounds of the CPU tests
+# (tests/torch_train_common.py)
+TRAIN_NATIVE = (384, 512)
+TRAIN_SAMPLES = 12
+TRAIN_STEPS = 5
+TRAIN_FF_DEPTH = 4
+TRAIN_FF_B = 2
+GRAD_RTOL, GRAD_ATOL, GRAD_L2 = 1e-4, 5e-3, 2e-3
 ROOT = pathlib.Path(__file__).resolve().parent
 # one dependent step of K8 as reckoned for its chain bound: 8 float32
 # operations at 4 cycles and the two special-function operations (log2,
@@ -1876,6 +1921,331 @@ def deep_k1_time(launches: dict, dev) -> dict:
     return entries[0]
 
 
+# ── the training slice ───────────────────────────────────────────────────
+
+
+def batch_grads(model, batch: dict, dev, iters: int) -> dict:
+    """The gradients of one forward and backward pass of RAFT ``model`` on
+    ``batch`` (no optimizer step), by parameter name, on the CPU."""
+    b = ptrain.to_device(batch, dev)
+    model.zero_grad(set_to_none=True)
+    loss, _ = sequence_loss(model(b["image1"], b["image2"], iters=iters), b["flow"], b["valid"])
+    loss.backward()
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def grad_check(got: dict, want: dict, what: str) -> dict:
+    """``got`` against ``want`` (name → gradient) to the CPU tests' bounds
+    (GRAD_RTOL of each tensor's largest + GRAD_ATOL of the model's largest,
+    GRAD_L2 over the whole gradient); returns the largest readings."""
+    top = max(g.abs().max().item() for g in want.values())
+    worst, sq_err, sq_ref = 0.0, 0.0, 0.0
+    for name, ref in want.items():
+        err = (got[name] - ref).abs().max().item()
+        if not err <= GRAD_RTOL * ref.abs().max().item() + GRAD_ATOL * top:
+            raise AssertionError(f"{what}: gradient of {name} is {err} off (model's largest {top})")
+        worst = max(worst, err / top)
+        sq_err += float(((got[name] - ref).double() ** 2).sum())
+        sq_ref += float((ref.double() ** 2).sum())
+    l2 = (sq_err / sq_ref) ** 0.5
+    if not l2 <= GRAD_L2:
+        raise AssertionError(f"{what}: gradients {l2} apart in L2")
+    return {"grad_max_abs_err_of_model_largest": worst, "grad_l2_rel_err": l2}
+
+
+def train_batch(b: int, h: int, w: int, seed: int) -> dict:
+    """A train batch from a seed (numpy): a texture and its copy moved
+    (2, 3) px, the flow that shift plus noise, a tenth of the pixels
+    invalid."""
+    rng = np.random.default_rng(seed)
+    base = (rng.random((b, h + 8, w + 8, 3)) * 255).astype(np.uint8)
+    flow = np.empty((b, h, w, 2), np.float32)
+    flow[..., 0], flow[..., 1] = 3.0, 2.0
+    flow += rng.normal(0, 0.5, flow.shape).astype(np.float32)
+    return {"image1": base[:, 4:4 + h, 4:4 + w].astype(np.float32),
+            "image2": base[:, 2:2 + h, 1:1 + w].astype(np.float32),
+            "flow": flow, "valid": (rng.random((b, h, w)) > 0.1).astype(np.float32)}
+
+
+def drive_train_parity(dev) -> None:
+    """One train step of RAFT-small and RAFT-basic at the CPU tests' size
+    (64×96, B = 2, 2 iterations), the same seeded weights and batch on the
+    card (cuDNN TF32 off) and on the CPU port: the loss within 1e-5
+    relative, every gradient to the CPU tests' bounds, the parameters after
+    the update within 2·lr₀ + 1e-6·max |p|."""
+    batch = train_batch(2, 64, 96, seed=3)
+    out = {}
+    with f32_convs():
+        for kind in ("small", "basic"):
+            cfg = RaftConfig(small=kind == "small", iters=2)
+            cpu_model, cpu_tx, cpu_state = ptrain.create_train_state(0, "cpu", cfg=cfg)
+            model = copy.deepcopy(cpu_model).to(dev)
+            tx = raft_optimizer(model)
+            grads = batch_grads(model, batch, dev, 2)
+            ref = batch_grads(cpu_model, batch, torch.device("cpu"), 2)
+            readings = grad_check(grads, ref, f"train_parity {kind}")
+            launches, (_, got) = launched_by(lambda: ptrain.make_train_step(
+                model, tx, dev, iters=2)(ptrain.TrainState(model, tx), batch))
+            _, want = ptrain.make_train_step(cpu_model, cpu_tx, "cpu", iters=2)(cpu_state, batch)
+            if launches:
+                raise AssertionError(f"train_parity: the train step launched {launches}")
+            loss_err = abs(got["loss"].item() - want["loss"].item()) / want["loss"].item()
+            if not loss_err <= 1e-5:
+                raise AssertionError(f"train_parity {kind}: loss {loss_err} relative off")
+            lr0 = toptim.onecycle_schedule(4e-4, 100_000)(0)  # the defaults' first rate
+            worst = 0.0
+            cpu_params = dict(cpu_model.named_parameters())
+            for name, p in model.named_parameters():
+                ref_p = cpu_params[name].detach()
+                err = (p.detach().cpu() - ref_p).abs().max().item()
+                if not err <= 2 * lr0 + 1e-6 * ref_p.abs().max().item():
+                    raise AssertionError(f"train_parity {kind}: {name} {err} off after the step")
+                worst = max(worst, err / lr0)
+            out[kind] = {"loss": want["loss"].item(), "loss_rel_err": loss_err,
+                         "param_max_abs_err_in_lr0": worst, **readings}
+    emit({"phase": "train_parity", "size": [64, 96], "batch": 2, "iters": 2,
+          "precision": "float32 (cuDNN TF32 off)", "tolerances": {
+              "loss_rel": 1e-5, "grad": f"{GRAD_RTOL}·tensor max + {GRAD_ATOL}·model max",
+              "grad_l2": GRAD_L2, "params": "2·lr0 + 1e-6·max|p|"}, **out})
+
+
+def chairs_samples(n: int, seed: int):
+    """``n`` synthetic pairs at FlyingChairs' native 384×512."""
+    return synthetic_affine_dataset(np.random.default_rng(seed), n=n, size=TRAIN_NATIVE)
+
+
+def drive_train_raft(dev, samples) -> None:
+    """RAFT-basic at the chairs stage of RAFT_STANDARD_STAGES (batch 10,
+    368×496 crops, 12 iterations, lr 4e-4, wdecay 1e-4, gamma 0.8) on
+    synthetic 384×512 samples through the chairs augmentor, at PyTorch's
+    defaults: ``run_stage`` takes the first step (the warm-up) and writes
+    its checkpoint, which restores into a fresh state equal; then
+    TRAIN_STEPS steps of ``make_train_step`` over ``mixed_batch_iterator``,
+    as ``train_loop`` runs them (one read of the metrics a step), each
+    timed; host syncs of a step and of the loop's read; the launches and
+    the device's busy time of one step (a trace); FLOPs a step; peak
+    memory."""
+    stage = RAFT_STANDARD_STAGES[0]
+    scanners = {"chairs": lambda: samples}
+    rng = np.random.default_rng(0)
+    cfg = RaftConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        state, info = run_stage(stage, dev, scanners, tmp, rng, raft_cfg=cfg, num_steps=1)
+        warm_s = time.perf_counter() - start
+        fresh = ptrain.create_train_state(1, dev, cfg=cfg, lr=stage.lr, num_steps=1)[2]
+        fresh, at = restore_checkpoint(pathlib.Path(tmp) / stage.name, fresh)
+        same = at == 1 and all(torch.equal(a, b) for a, b in zip(fresh.params.values(),
+                                                                   state.params.values()))
+        if not same:
+            raise AssertionError("train_raft: the restored checkpoint differs")
+        del fresh
+    step = ptrain.make_train_step(state.model, state.tx, dev, iters=cfg.iters, gamma=stage.gamma)
+    batches = mixed_batch_iterator(build_stage_items(stage, scanners), stage.batch_size, rng)
+    losses, step_s, data_s = [], [], []
+    torch.cuda.synchronize()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        values = torch.stack([metrics[k].float() for k in metrics]).tolist()
+        t2 = time.perf_counter()
+        data_s.append(t1 - t0)
+        step_s.append(t2 - t1)
+        losses.append(dict(zip(metrics, values))["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_raft: losses {losses}")
+    batch = next(batches)
+    syncs_step = host_syncs(lambda: step(state, batch))
+    _, metrics = step(state, batch)
+    syncs_read = host_syncs(lambda: torch.stack([metrics[k].float() for k in metrics]).tolist())
+    if syncs_step or sum(syncs_read.values()) != 1:
+        raise AssertionError(f"train_raft: host syncs {syncs_step} in the step, {syncs_read} read")
+    launches, _ = launched_by(lambda: step(state, batch))
+    if launches:
+        raise AssertionError(f"train_raft: the train step launched {launches}")
+    flops = flops_of(lambda: step(state, batch))
+    median = float(np.median(step_s))
+    trace = device_trace(lambda: step(state, batch), median * 1e3, stage.batch_size, (),
+                         path="train_raft_step")
+    emit({"phase": "train_raft", "model": "raft-basic (cnet 'batch': GroupNorm)",
+          "stage": stage.name, "batch": stage.batch_size, "crop": list(stage.image_size),
+          "native": list(TRAIN_NATIVE), "iters": cfg.iters, "lr": stage.lr,
+          "samples": len(samples), "warmup_step_s_with_checkpoint": warm_s,
+          "warmup_wall_s": info["wall_s"], "checkpoint_restored_equal": same,
+          "step_s_median": median, "step_s": step_s, "data_s_median": float(np.median(data_s)),
+          "data_s": data_s, "losses": losses, "host_syncs_per_step": sum(syncs_step.values()),
+          "host_syncs_per_loop_read": sum(syncs_read.values()),
+          "port_kernel_launches_per_step": launches,
+          "device_launches_per_step": trace.get("device_launches"),
+          "device_busy_ms_per_step": trace.get("busy_ms"),
+          "idle_share": trace.get("idle_share_of_timed_batch"),
+          "tflop_per_step": flops / 1e12, "peak_memory_gb": peak / 1e9,
+          "remat": cfg.remat, "timing_precision": "PyTorch defaults: cuDNN convolutions may "
+          "use TF32, matrix products float32", "card": smi_line()})
+    emit(trace)
+    del state, step, metrics, batch
+    torch.cuda.empty_cache()
+
+
+def drive_train_remat(dev, samples) -> None:
+    """One full-width step's gradients (RAFT-basic, batch 10, 368×496, 12
+    iterations) with ``remat=True`` against ``remat=False`` from the same
+    weights on the same augmented batch, to the CPU tests' bounds; the
+    peak memory of each."""
+    stage = RAFT_STANDARD_STAGES[0]
+    items = build_stage_items(stage, {"chairs": lambda: samples})
+    batch = next(mixed_batch_iterator(items, stage.batch_size, np.random.default_rng(1)))
+    peaks, grads, seconds = {}, {}, {}
+    for remat in (False, True):
+        model = ptrain.create_train_state(0, dev, cfg=RaftConfig(remat=remat))[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        grads[remat] = batch_grads(model, batch, dev, 12)
+        torch.cuda.synchronize()
+        seconds[remat] = time.perf_counter() - start
+        peaks[remat] = torch.cuda.max_memory_allocated() / 1e9
+        del model
+        torch.cuda.empty_cache()
+    readings = grad_check(grads[True], grads[False], "train_remat")
+    emit({"phase": "train_remat", "batch": stage.batch_size, "crop": list(stage.image_size),
+          "iters": 12, "peak_memory_gb": {"remat_off": peaks[False], "remat_on": peaks[True]},
+          "forward_backward_s": {"remat_off": seconds[False], "remat_on": seconds[True]},
+          **readings, "card": smi_line()})
+
+
+def drive_train_flowformer(dev, samples) -> None:
+    """One FlowFormer step of the ff_chairs stage's model (twins backbones,
+    decoder depth cut from 12 to TRAIN_FF_DEPTH) at batch TRAIN_FF_B (cut
+    from 8) and the stage's 368×496 crops, with the twins group
+    (``twins_lr_factor=0.05``): the groups' learning rates at step 0 and 1
+    against the schedule, the loss finite."""
+    stage = FLOWFORMER_STAGES[0]
+    exp = get_experiment(stage.ff_experiment)
+    cfg = dataclasses.replace(exp.model, decoder_depth=TRAIN_FF_DEPTH)
+    model, tx, state = ptrain.create_flowformer_state(
+        0, dev, cfg=cfg, lr=stage.lr, num_steps=100, twins_lr_factor=stage.twins_lr_factor,
+        wdecay=exp.adamw_decay, eps=exp.epsilon, clip=exp.clip)
+    scheds = [toptim.onecycle_schedule(stage.lr, 100),
+              toptim.onecycle_schedule(stage.lr * stage.twins_lr_factor, 100)]
+    lrs0 = tx.lrs()
+    if lrs0 != [s(0) for s in scheds]:
+        raise AssertionError(f"train_flowformer: lrs {lrs0} at step 0")
+    items = build_stage_items(dataclasses.replace(stage, batch_size=TRAIN_FF_B),
+                              {"chairs": lambda: samples})
+    batch = next(mixed_batch_iterator(items, TRAIN_FF_B, np.random.default_rng(2)))
+    step = ptrain.make_flowformer_step(model, tx, dev, gamma=stage.gamma)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    launches, (state, metrics) = launched_by(lambda: step(state, batch))
+    seconds = time.perf_counter() - start
+    loss = metrics["loss"].item()
+    if launches or not np.isfinite(loss) or tx.lrs() != [s(1) for s in scheds]:
+        raise AssertionError(f"train_flowformer: loss {loss}, lrs {tx.lrs()}, "
+                             f"launches {launches}")
+    n_backbone = len(tx.optimizer.param_groups[1]["params"])
+    emit({"phase": "train_flowformer", "model": "ff_chairs (things widths, twins backbones)",
+          "decoder_depth": TRAIN_FF_DEPTH, "decoder_depth_of_stage": exp.model.decoder_depth,
+          "batch": TRAIN_FF_B, "batch_of_stage": stage.batch_size, "crop": list(stage.image_size),
+          "loss": loss, "lrs_step0": lrs0, "lrs_step1": tx.lrs(),
+          "backbone_params": n_backbone, "main_params": len(tx.optimizer.param_groups[0]["params"]),
+          "step_s_first": seconds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card": smi_line()})
+    del model, tx, state, step, batch
+    torch.cuda.empty_cache()
+
+
+def chairs_layout(root: pathlib.Path, samples) -> pathlib.Path:
+    """FlyingChairs' layout as the scanner reads it: ``data/<n>_img1.ppm``,
+    ``<n>_img2.ppm`` and ``<n>_flow.flo``."""
+    data = root / "FlyingChairs_release" / "data"
+    data.mkdir(parents=True)
+    for i, (a, b, flow) in enumerate(samples):
+        (data / f"{i:05d}_img1.ppm").write_bytes(encode_ppm(a))
+        (data / f"{i:05d}_img2.ppm").write_bytes(encode_ppm(b))
+        write_flo(data / f"{i:05d}_flow.flo", flow)
+    return root
+
+
+def png_scene(root: pathlib.Path) -> None:
+    """A uavnew2-shaped scene of PNG frames (600×600, a texture moving (3, 6)
+    px a frame) with a 15×15 state matrix and a 4×5-cell active block."""
+    import scipy.io
+
+    scene = root / "uavnew2"
+    (scene / "RGB").mkdir(parents=True)
+    (scene / "gtmask").mkdir()
+    rng = np.random.default_rng(0)
+    base = (rng.random((640, 640, 3)) * 255).astype(np.uint8)
+    names = [f"{t}.png" for t in range(4)]
+    for t, name in enumerate(names):
+        frame = base[10 + 3 * t: 610 + 3 * t, 12 + 6 * t: 612 + 6 * t]
+        (scene / "RGB" / name).write_bytes(encode_png(frame))
+        gt = np.zeros((600, 600), np.uint8)
+        gt[200 + 3 * t: 320 + 3 * t, 250: 400] = 255
+        (scene / "gtmask" / name).write_bytes(encode_png(gt))
+    (scene / "imgs.txt").write_text("\n".join(names) + "\n")
+    mem = np.full((15, 15, 4), 1e-12)
+    mem[5:9, 4:9, :] = 1e-5
+    scipy.io.savemat(scene / "constructed_3D_matrix.mat", {"constructed3DMatrix": mem})
+
+
+def drive_train_cli(dev, samples) -> None:
+    """``python -m nsof_tpu_torch train --stage chairs --small --steps 2`` on a
+    FlyingChairs layout of the phase's synthetic 384×512 pairs, then, side
+    by side, ``deep --ckpt`` on its checkpoint over a PNG scene and
+    ``validate --dataset chairs`` over the layout with that checkpoint: each
+    in a process of its own, each exit 0; the seconds of each, from the
+    start of its group."""
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        chairs_layout(d, samples)
+        png_scene(d)
+        ckpt = d / "ckpt" / "chairs"
+        runs = {
+            "train": ["train", "--data-root", str(d), "--ckpt-root", str(d / "ckpt"),
+                      "--stage", "chairs", "--small", "--steps", "2"],
+            "deep": ["deep", "--data-root", str(d), "--scene", "uavnew2", "--task", "track",
+                     "--iters", "2", "--ckpt", str(ckpt), "--out", str(d / "deep")],
+            "validate": ["validate", "--dataset", "chairs", "--data-root",
+                         str(d / "FlyingChairs_release"), "--backend", "raft", "--small",
+                         "--ckpt", str(ckpt), "--iters", "2", "--max-pairs", "2"],
+        }
+        seconds, printed = {}, {}
+        # train first; then deep and validate, which only read its checkpoint, side by side
+        for group in (("train",), ("deep", "validate")):
+            start = time.perf_counter()
+            procs = {name: subprocess.Popen(
+                [sys.executable, "-m", "nsof_tpu_torch", *runs[name], *CLI_ARGS], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for name in group}
+            try:
+                for name, proc in procs.items():
+                    out, err = proc.communicate(timeout=600)
+                    seconds[name] = time.perf_counter() - start
+                    if proc.returncode != 0:
+                        raise AssertionError(f"train_cli {name}: exit {proc.returncode}\n{err}")
+                    printed[name] = json.loads(out.strip().splitlines()[-1])
+            finally:
+                for proc in procs.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+        steps = sorted(int(p.name) for p in ckpt.iterdir() if p.name.isdigit())
+        records = json.loads((d / "deep" / "deep_track.json").read_text())
+    if steps != [2] or printed["train"] != {"stages": ["chairs"]} or len(records) != 2:
+        raise AssertionError(f"train_cli: checkpoints {steps}, {printed}, records {records}")
+    if not (printed["validate"]["n"] == 2 and np.isfinite(printed["validate"]["epe"])):
+        raise AssertionError(f"train_cli: validate printed {printed['validate']}")
+    emit({"phase": "train_cli", "pairs": len(samples), "native": list(TRAIN_NATIVE),
+          "seconds": seconds, "printed": printed, "checkpoint_steps": steps,
+          "card": smi_line()})
+
+
 def tree_adds(win: int) -> int:
     """Additions of a log-tree window sum of width ``win`` a position, with
     every partial sum computed once."""
@@ -2227,6 +2597,22 @@ def main() -> None:
     deep_launches = drive_deep_batch(dev)
     drive_deep_flowformer(dev)
 
+    # ── the training slice: parity with the CPU, RAFT-basic at full width,
+    #    remat, FlowFormer with the twins group, the CLI ──
+    start = time.perf_counter()
+    samples = chairs_samples(TRAIN_SAMPLES, seed=0)
+    emit({"phase": "phase_seconds", "name": "train_samples",
+          "seconds": time.perf_counter() - start, "card": smi_line()})
+    for phase, drive in (("train_parity", lambda: drive_train_parity(dev)),
+                         ("train_raft", lambda: drive_train_raft(dev, samples)),
+                         ("train_remat", lambda: drive_train_remat(dev, samples)),
+                         ("train_flowformer", lambda: drive_train_flowformer(dev, samples)),
+                         ("train_cli", lambda: drive_train_cli(dev, samples))):
+        start = time.perf_counter()
+        drive()
+        emit({"phase": "phase_seconds", "name": phase, "seconds": time.perf_counter() - start,
+              "card": smi_line()})
+
     # ── per-kernel times at each path's level-0 shapes ──
     _, prev, _ = bench_inputs(B_MAIN, 0, dev)
     kernels = kernel_times(launches, errs, dev, prev)
@@ -2235,7 +2621,7 @@ def main() -> None:
 
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 

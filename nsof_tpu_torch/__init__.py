@@ -2,7 +2,8 @@
 the exact Farnebäck with the reference's dual path, the tracking and
 prediction heads, the device simulation with the streaming pipelines, the
 FLAG=1 separate regions, the Canny gate, the serving engine, the demo
-server, the scene runners and the CLI.
+server, the scene runners, the deep backends with their training, and the
+CLI.
 
 A package of its own beside the JAX one: it imports ``torch`` and numpy,
 never ``jax`` and nothing of ``nsof_tpu``.  Its kernels are CUDA C++ for
@@ -24,8 +25,14 @@ binner of :mod:`.native`, ``simulate_events``, ``simulate_events_stream``);
 ``BatchingEngine`` in :mod:`.serve.engine` and the demo server in
 :mod:`.serve.app`; ``run_segmentation``, ``run_tracking`` and
 ``run_prediction`` over a :class:`~.data.scenes.SceneData` in
-:mod:`.pipelines.runner`; the command line, ``python -m nsof_tpu_torch.cli``.
-Its image I/O is PNG, by its own codec (:mod:`.utils.png`).
+:mod:`.pipelines.runner`; RAFT and FlowFormer in :mod:`.models`, their
+deep pipelines in :mod:`.pipelines.deep_flow`; training: the train steps
+in :mod:`.parallel.train`, ``run_stage`` and ``run_curriculum`` in
+:mod:`.train.curriculum`, checkpoints in :mod:`.train.trainer`, evaluation
+in :mod:`.train.evaluate`, the training data in :mod:`.data.flow_datasets`;
+the command line, ``python -m nsof_tpu_torch`` (or ``.cli``).  Its image
+I/O is PNG (and PPM for training frames), by its own codecs
+(:mod:`.utils.png`, :mod:`.utils.ppm`).
 """
 
 from nsof_tpu_torch.config import DATASETS, PipelineConfig, config_from_dict

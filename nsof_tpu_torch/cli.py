@@ -7,8 +7,13 @@ Subcommands, with the JAX CLI's flags and defaults plus ``--device``
   scene (the reference's optical_flow_{seg,ob,prediction}.py mains).
 - ``deep`` — the deep-backend pipelines (RAFT or FlowFormer, 1/3 frames,
   MEMSIZE/3 gating) on a scene; ``--torch-ckpt`` loads a reference
-  checkpoint, ``--ckpt`` (a training checkpoint) waits for the training
-  slice and raises.
+  checkpoint, ``--ckpt`` the port's own training checkpoint (RAFT).
+- ``train`` — the staged RAFT curriculum (train_standard.sh) on one device
+  (``--mesh`` takes only ``1x1``); a checkpoint directory per stage under
+  ``--ckpt-root``.
+- ``validate`` — EPE / F1 over a Sintel, KITTI or FlyingChairs split, or
+  the benchmark's submission files; Farnebäck, RAFT (``--torch-ckpt`` or the
+  port's ``--ckpt``) or FlowFormer.
 - ``eventsim`` — event-driven device simulation from HDF5 or the synthetic
   moving-box stream (eventsim/event_mem_sim.py CLI, :334-373); only with
   ``--no-video`` (the video writer is not ported).
@@ -18,8 +23,9 @@ Subcommands, with the JAX CLI's flags and defaults plus ``--device``
 - ``stream`` — frames folder → device-state scan → ROI-gated masks.
 - ``serve`` — the demo HTTP server.
 
-Frames are read and written as PNG (:mod:`nsof_tpu_torch.utils.png`); a
-JPEG input raises, and an output the JAX CLI names after a ``.jpg`` input is
+Frames are read and written as PNG (:mod:`nsof_tpu_torch.utils.png`; the
+training sets' frames also as PPM); a JPEG input raises, and an output the
+JAX CLI names after a ``.jpg`` input is
 written as ``.png``.  Scene loading (``load_scene``) reads a scene of PNG
 frames with the port's codec and the reference's JPEG scenes through
 OpenCV.
@@ -106,31 +112,49 @@ def cmd_task(kind: str, args) -> int:
     return 0
 
 
+def _restore_raft(model, ckpt_dir: str):
+    """``model`` with the parameters of the newest step of the port's
+    training checkpoint directory ``ckpt_dir``; raises
+    ``FileNotFoundError`` when it holds none."""
+    from nsof_tpu_torch.parallel.train import TrainState
+    from nsof_tpu_torch.train.optim import raft_optimizer
+    from nsof_tpu_torch.train.trainer import restore_checkpoint
+
+    # checkpoints are whole TrainStates: restore into a template, keep the model
+    state, step = restore_checkpoint(
+        ckpt_dir, TrainState(model, raft_optimizer(model, lr=1e-4, num_steps=100)))
+    if step == 0:
+        raise FileNotFoundError(f"{ckpt_dir} holds no training checkpoint")
+    return state.model
+
+
+def _raft_model(args):
+    """RAFT with a reference checkpoint's weights (``--torch-ckpt``), or the
+    (``--small``) model with the port's training checkpoint's (``--ckpt``) or
+    random weights from torch's current generator."""
+    from nsof_tpu_torch.models.raft import RAFT, RaftConfig
+
+    if args.torch_ckpt:
+        from nsof_tpu_torch.models.convert import pretrained_raft
+
+        return pretrained_raft(args.torch_ckpt, iters=args.iters)
+    model = RAFT(RaftConfig(small=args.small, iters=args.iters))
+    return _restore_raft(model, args.ckpt) if args.ckpt else model
+
+
 def _deep_backend(args):
     """The ``deep`` subcommand's backend: RAFT (``--small`` / ``--basic``,
     ``--iters``) or FlowFormer (things_eval), with a reference checkpoint's
-    weights (``--torch-ckpt``) or, without one, random weights from torch's
-    generator seeded with 0."""
+    weights (``--torch-ckpt``), RAFT with the port's training checkpoint's
+    (``--ckpt``) or, without either, random weights from torch's generator
+    seeded with 0."""
     import torch
 
     from nsof_tpu_torch.pipelines.deep_flow import DeepBackend
 
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt reads a training checkpoint (an orbax TrainState); the port's training "
-            "slice (train/*, data/flow_datasets.py, the train and validate subcommands) is "
-            "not ported yet: pass a reference .pth with --torch-ckpt")
     torch.manual_seed(0)
     if args.backend == "raft":
-        from nsof_tpu_torch.models.raft import RAFT, RaftConfig
-
-        if args.torch_ckpt:
-            from nsof_tpu_torch.models.convert import pretrained_raft
-
-            model = pretrained_raft(args.torch_ckpt, iters=args.iters)
-        else:
-            model = RAFT(RaftConfig(small=args.small, iters=args.iters))
-        return DeepBackend.from_raft(model, iters=args.iters, device=args.device)
+        return DeepBackend.from_raft(_raft_model(args), iters=args.iters, device=args.device)
     from nsof_tpu_torch.models.flowformer import FlowFormer, FlowFormerConfig
 
     if args.torch_ckpt:
@@ -323,6 +347,102 @@ def cmd_stream(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Staged RAFT training (train_standard.sh:3-6 / fetch_dataloader stage
+    mixes) on one device."""
+    import dataclasses
+
+    from nsof_tpu_torch import _build
+    from nsof_tpu_torch.models.raft import RaftConfig
+    from nsof_tpu_torch.train.curriculum import RAFT_STANDARD_STAGES, run_curriculum
+
+    if args.mesh not in (None, "1x1"):
+        raise ValueError(f"--mesh {args.mesh}: the port trains on one device (1x1); data×model "
+                         "meshes wait for the parallel slice (torch.distributed)")
+    device = _build.resolve_device(args.device)
+    stages = RAFT_STANDARD_STAGES
+    if args.stage:
+        by_name = {s.name: s for s in RAFT_STANDARD_STAGES}
+        if args.stage not in by_name:
+            print(f"unknown stage {args.stage!r}; have {sorted(by_name)}")
+            return 2
+        stages = (dataclasses.replace(by_name[args.stage], restore_from=None),)
+    results = run_curriculum(
+        device,
+        args.data_root,
+        args.ckpt_root,
+        stages=stages,
+        raft_cfg=RaftConfig(small=args.small),
+        steps_per_stage=args.steps,
+        val_freq=args.val_freq,
+    )
+    print(json.dumps({"stages": sorted(results)}))
+    return 0
+
+
+def _flow_fn(args):
+    """``validate``'s ``flow_fn(img1 [1, H, W, 3], img2) -> flow [1, H, W, 2]``
+    on float32 RGB frames."""
+    import numpy as np
+    import torch
+
+    from nsof_tpu_torch.pipelines.deep_flow import DeepBackend
+
+    if args.backend == "farneback":
+        from nsof_tpu_torch import _build
+        from nsof_tpu_torch.ops.colorspace import rgb_to_gray_u8
+        from nsof_tpu_torch.ops.farneback import farneback
+
+        device = _build.resolve_device(args.device)
+
+        def gray(img):
+            return rgb_to_gray_u8(torch.from_numpy(np.asarray(img[0], np.uint8)))
+
+        return lambda i1, i2: farneback(gray(i1), gray(i2), device=device)[None]
+    if args.backend == "raft":
+        backend = DeepBackend.from_raft(_raft_model(args), iters=args.iters, device=args.device)
+    else:
+        from nsof_tpu_torch.models.flowformer.convert import pretrained_flowformer
+
+        backend = DeepBackend.from_flowformer(pretrained_flowformer(args.torch_ckpt),
+                                              device=args.device)
+
+    def flow_fn(i1, i2):
+        return backend.apply(torch.from_numpy(i1).to(backend.device),
+                             torch.from_numpy(i2).to(backend.device))
+
+    return flow_fn
+
+
+def cmd_validate(args) -> int:
+    """Benchmark validation / submission writers (evaluate.py:21-197):
+    run a flow backend over a Sintel/KITTI/Chairs split and report EPE/F1,
+    or write the benchmark's upload files."""
+    from nsof_tpu_torch.data import flow_datasets as fd
+    from nsof_tpu_torch.train import evaluate as ev
+
+    flow_fn = _flow_fn(args)
+    if args.submission:
+        if args.dataset == "kitti":
+            n = ev.create_kitti_submission(flow_fn, args.data_root, args.out)
+        else:
+            n = ev.create_sintel_submission(
+                flow_fn, args.data_root, args.out, dstype=args.dstype
+            )
+        print(json.dumps({"written": n, "out": args.out}))
+        return 0
+
+    if args.dataset == "sintel":
+        pairs = fd.scan_sintel(args.data_root, dstype=args.dstype)
+    elif args.dataset == "kitti":
+        pairs = fd.scan_kitti(args.data_root)
+    else:
+        pairs = fd.scan_flying_chairs(args.data_root)
+    metrics = ev.validate_pairs(flow_fn, pairs, max_pairs=args.max_pairs)
+    print(json.dumps({"dataset": args.dataset, **metrics}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="nsof_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -339,7 +459,8 @@ def main(argv=None) -> int:
     p.add_argument("--task", choices=["seg", "track", "predict"], default="seg")
     p.add_argument("--backend", choices=["raft", "flowformer"], default="raft")
     p.add_argument("--ckpt", default=None,
-                   help="training checkpoint (waits for the port's training slice)")
+                   help="the port's training checkpoint directory (RAFT; a stage's "
+                        "directory under train's --ckpt-root)")
     p.add_argument("--torch-ckpt", default=None,
                    help="reference torch checkpoint (raft-things.pth, raft-small.pth, "
                         "FlowFormer things.pth)")
@@ -381,6 +502,43 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None)
     parsers.append(p)
 
+    p = sub.add_parser("train")
+    p.add_argument("--data-root", required=True,
+                   help="folder holding FlyingChairs_release/ "
+                        "FlyingThings3D/ Sintel/ KITTI/ HD1k/")
+    p.add_argument("--ckpt-root", default="checkpoints")
+    p.add_argument("--stage", default=None,
+                   help="run a single stage (chairs|things|sintel|kitti); "
+                        "default runs the full staged schedule")
+    p.add_argument("--steps", type=int, default=None,
+                   help="override steps per stage (smoke runs)")
+    p.add_argument("--mesh", default=None,
+                   help="data×model mesh: only 1x1 (one device) in the port")
+    p.add_argument("--small", action="store_true")
+    p.add_argument("--val-freq", type=int, default=5000)
+    parsers.append(p)
+
+    p = sub.add_parser("validate")
+    p.add_argument("--dataset", choices=["sintel", "kitti", "chairs"],
+                   default="sintel")
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--dstype", choices=["clean", "final"], default="clean")
+    p.add_argument("--backend",
+                   choices=["farneback", "raft", "flowformer"],
+                   default="farneback")
+    p.add_argument("--torch-ckpt", default=None,
+                   help="reference .pth for the deep backends")
+    p.add_argument("--ckpt", default=None,
+                   help="the port's training checkpoint directory (RAFT)")
+    p.add_argument("--small", action="store_true",
+                   help="RAFT-small (for --ckpt, as train's --small)")
+    p.add_argument("--iters", type=int, default=32)
+    p.add_argument("--max-pairs", type=int, default=None)
+    p.add_argument("--submission", action="store_true",
+                   help="write upload files instead of validating")
+    p.add_argument("--out", default="submission")
+    parsers.append(p)
+
     p = sub.add_parser("stream")
     p.add_argument("--frames", required=True, help="folder of PNG frames")
     p.add_argument("--preset", default="tabletennis",
@@ -404,6 +562,9 @@ def main(argv=None) -> int:
         p.add_argument("--device", default=None, help=device_help)
 
     args = ap.parse_args(argv)
+    if getattr(args, "ckpt", None) and args.backend != "raft":
+        raise ValueError(f"--ckpt restores RAFT from the port's training checkpoint; "
+                         f"--backend is {args.backend!r}")
     if args.cmd in ("seg", "track", "predict"):
         return cmd_task(args.cmd, args)
     if args.cmd == "deep":
@@ -416,6 +577,10 @@ def main(argv=None) -> int:
         return cmd_flow(args)
     if args.cmd == "stream":
         return cmd_stream(args)
+    if args.cmd == "train":
+        return cmd_train(args)
+    if args.cmd == "validate":
+        return cmd_validate(args)
     from nsof_tpu_torch.serve.app import serve
 
     serve(args.host, args.port, device=args.device)

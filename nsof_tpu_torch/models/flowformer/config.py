@@ -44,6 +44,9 @@ class FlowFormerConfig:
     cnet: str = "twins"
     fnet: str = "twins"
     compute_dtype: Any = torch.float32
+    # recompute each decoder step in the backward pass (as RaftConfig.remat:
+    # at depth 32 the stored per-step activations dominate training memory)
+    remat: bool = False
 
 
 # Tiled-inference constants (visualize_flow.py:27-100)

@@ -7,7 +7,8 @@ current coordinates (r = 4), a flow-token query cross-attends into the
 latent cost memory, and a GMA-augmented SepConvGRU updates the hidden state
 and the flow, with convex 8× upsampling.  The default depth is 32
 (things_eval.py:52).  The update block is NCHW, the attention channels-last.
-In test mode the flow is upsampled once, after the last step.
+In test mode the flow is upsampled once, after the last step.  With
+``cfg.remat`` each step is recomputed in the backward pass.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from einops import rearrange
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nsof_tpu_torch.models.flowformer.config import FlowFormerConfig
 from nsof_tpu_torch.models.flowformer.encoder import (_ffn, linear_position_embedding,
@@ -142,9 +144,8 @@ class MemoryDecoder(nn.Module):
         cross = self.decoder_layer.cross_attend
         key, value = cross.k(cost_memory), cross.v(cost_memory)
         cm = [cost_maps[:, 0]]
-        flows, up_mask = [], None
-        for _ in range(c.decoder_depth):
-            coords1 = coords1.detach()
+
+        def step(net, coords1):
             cost_forward = corr_lookup(cm, coords1, 4)  # [B, H1, W1, 81]
             query = self.flow_token_encoder(cost_forward.permute(0, 3, 1, 2))
             query = query.permute(0, 2, 3, 1).reshape(b * h1 * w1, 1, dim)
@@ -155,8 +156,20 @@ class MemoryDecoder(nn.Module):
             net, up_mask, delta = self.update_block(net, inp, corr.permute(0, 3, 1, 2), flow,
                                                     attention)
             coords1 = coords1 + delta.float().permute(0, 2, 3, 1)
+            flow_up = None if test_mode else self._upsample(coords1 - coords0, up_mask)
+            return net, up_mask, coords1, flow_up
+
+        remat = c.remat and torch.is_grad_enabled()
+        flows, up_mask = [], None
+        for _ in range(c.decoder_depth):
+            coords1 = coords1.detach()
+            if remat:
+                net, up_mask, coords1, flow_up = checkpoint(step, net, coords1, use_reentrant=False,
+                                                            preserve_rng_state=False)
+            else:
+                net, up_mask, coords1, flow_up = step(net, coords1)
             if not test_mode:
-                flows.append(self._upsample(coords1 - coords0, up_mask))
+                flows.append(flow_up)
         if test_mode:
             return self._upsample(coords1 - coords0, up_mask)
         return flows

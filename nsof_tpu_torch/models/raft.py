@@ -30,6 +30,13 @@ JAX model's hat-selector matrix products are a TPU device for avoiding
 gathers).  In test mode the flow is upsampled once, after the last
 iteration; the JAX scan upsamples every iteration and keeps the last, which
 is the same flow.
+
+Training: the coordinates are detached before each lookup (the JAX model's
+``stop_gradient``), so the lookup's gathers backpropagate into the
+correlation pyramid and the features, not into earlier iterations'
+coordinates; with ``remat`` each refinement step (lookup, update block,
+upsampling) is recomputed in the backward pass (the JAX ``nn.remat`` of the
+scan body).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from nsof_tpu_torch.ops.correlation import window_sample, windowed_correlation_tiled
 
@@ -58,6 +66,10 @@ class RaftConfig:
     # 'alternate' correlates windows against a pooled fmap2 pyramid at each
     # lookup (AlternateCorrBlock, core/corr.py:63-91): O(H·W) memory
     corr_mode: str = "allpairs"
+    # recompute each refinement step in the backward pass instead of storing
+    # its activations (torch.utils.checkpoint): training memory for ~1 more
+    # forward of the update block; no effect on inference
+    remat: bool = False
     # the basic model's cnet normalisation: 'batch' (GroupNorm stand-in) or
     # 'frozenbatch' (per-channel affine, for reference checkpoints)
     cnet_norm: str = "batch"
@@ -492,17 +504,28 @@ class RAFT(nn.Module):
         coords1 = coords0.clone()
         if flow_init is not None:
             coords1 = coords1 + flow_init
-        flows = []
-        up_mask = None
-        for _ in range(iters):
-            coords1 = coords1.detach()
+
+        def step(net, coords1):
             corr = lookup(coords1).permute(0, 3, 1, 2)
             flow = (coords1 - coords0).permute(0, 3, 1, 2)
             with self._autocast(img1.device):
                 net, up_mask, delta = self.update_block(net, inp, corr, flow)
             coords1 = coords1 + delta.float().permute(0, 2, 3, 1)
+            flow_up = None if test_mode else self._upsample(coords1 - coords0, up_mask)
+            return net, up_mask, coords1, flow_up
+
+        remat = cfg.remat and torch.is_grad_enabled()
+        flows = []
+        up_mask = None
+        for _ in range(iters):
+            coords1 = coords1.detach()
+            if remat:
+                net, up_mask, coords1, flow_up = checkpoint(step, net, coords1, use_reentrant=False,
+                                                            preserve_rng_state=False)
+            else:
+                net, up_mask, coords1, flow_up = step(net, coords1)
             if not test_mode:
-                flows.append(self._upsample(coords1 - coords0, up_mask))
+                flows.append(flow_up)
         if test_mode:
             return coords1 - coords0, self._upsample(coords1 - coords0, up_mask)
         return flows

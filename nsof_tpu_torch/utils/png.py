@@ -15,6 +15,12 @@ installed beside the port's GPU runtime).  It covers what those paths see:
   OpenCV's weights 0.299 and 0.587).  Anything else (JPEG or another
   format, 16-bit or sub-byte samples, Adam7 interlacing) raises
   ``ValueError`` naming what it found.
+- :func:`encode_png16` / :func:`decode_png16`: 16-bit RGB images (uint16
+  ``[H, W, 3]``), the samples big-endian as PNG stores them: KITTI's flow
+  files.  The decoder also reads 16-bit RGBA, dropping alpha; other 16-bit
+  images (gray, gray + alpha) raise ``ValueError``.  The channels come in
+  RGB order, where ``cv2.imread(..., IMREAD_ANYDEPTH | IMREAD_COLOR)`` gives
+  BGR.
 """
 
 from __future__ import annotations
@@ -38,6 +44,17 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+def _encode(rows: np.ndarray, w: int, h: int, depth: int, ctype: int, level: int) -> bytes:
+    """PNG bytes of the raw scanlines ``rows`` ``[h, stride]`` (uint8),
+    each with the Up filter."""
+    up = rows.copy()
+    up[1:] -= rows[:-1]  # uint8 arithmetic wraps mod 256, as the filter does
+    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + _chunk(b"IEND", b""))
+
+
 def encode_png(arr, level: int = 1) -> bytes:
     """uint8 ``[H, W]``, ``[H, W, 3]`` (RGB) or ``[H, W, 4]`` (RGBA) → PNG
     bytes (8-bit, non-interlaced, the Up filter on every row).  ``level`` is
@@ -52,13 +69,20 @@ def encode_png(arr, level: int = 1) -> bytes:
     h, w, c = a.shape
     if h == 0 or w == 0:
         raise ValueError(f"encode_png needs a non-empty image, got {a.shape}")
-    rows = a.reshape(h, w * c)
-    up = rows.copy()
-    up[1:] -= rows[:-1]  # uint8 arithmetic wraps mod 256, as the filter does
-    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    return (SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + _chunk(b"IEND", b""))
+    return _encode(a.reshape(h, w * c), w, h, 8, _COLOR_TYPE[c], level)
+
+
+def encode_png16(arr, level: int = 1) -> bytes:
+    """uint16 ``[H, W, 3]`` (RGB) → 16-bit PNG bytes (non-interlaced, the Up
+    filter on every row's bytes)."""
+    a = np.asarray(arr)
+    if a.dtype != np.uint16 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"encode_png16 takes uint16 [H, W, 3], got {a.dtype} {a.shape}")
+    h, w, _ = a.shape
+    if h == 0 or w == 0:
+        raise ValueError(f"encode_png16 needs a non-empty image, got {a.shape}")
+    rows = np.ascontiguousarray(a.astype(">u2")).view(np.uint8).reshape(h, w * 6)
+    return _encode(rows, w, h, 16, 2, level)
 
 
 def _chunks(data: bytes):
@@ -131,9 +155,8 @@ def _to_gray(rgb: np.ndarray) -> np.ndarray:
     return ((r * _GRAY_R + g * _GRAY_G + b * _GRAY_B) >> 15).astype(np.uint8)
 
 
-def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
-    """PNG bytes → uint8 ``[H, W, 3]`` RGB, or ``[H, W]`` with ``gray``
-    (see the module docstring for what is read and what raises)."""
+def _read(data: bytes):
+    """(header, palette, decompressed image data) of PNG bytes."""
     data = bytes(data)
     if not data.startswith(SIGNATURE):
         found = "JPEG" if data[:3] == b"\xff\xd8\xff" else "no PNG signature"
@@ -150,18 +173,25 @@ def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
             idat.append(body)
     if header is None:
         raise ValueError("PNG has no IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = header
+    ctype, interlace = header[3], header[6]
     if ctype not in _CHANNELS:
         raise ValueError(f"PNG colour type {ctype} is not one of 0, 2, 3, 4, 6")
-    if depth != 8:
-        raise ValueError(f"{depth}-bit PNG samples are not supported; send 8-bit PNG")
     if interlace:
         raise ValueError("interlaced (Adam7) PNG is not supported; send a non-interlaced PNG")
-    c = _CHANNELS[ctype]
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"PNG image data is corrupt: {e}") from None
+    return header, palette, raw
+
+
+def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
+    """PNG bytes → uint8 ``[H, W, 3]`` RGB, or ``[H, W]`` with ``gray``
+    (see the module docstring for what is read and what raises)."""
+    (w, h, depth, ctype, _, _, _), palette, raw = _read(data)
+    if depth != 8:
+        raise ValueError(f"{depth}-bit PNG samples are not supported; send 8-bit PNG")
+    c = _CHANNELS[ctype]
     px = _unfilter(raw, h, w * c, c).reshape(h, w, c)
     if ctype == 3:
         if palette is None:
@@ -174,3 +204,15 @@ def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
     else:
         rgb = px[..., :3]
     return _to_gray(rgb) if gray else np.ascontiguousarray(rgb)
+
+
+def decode_png16(data: bytes) -> np.ndarray:
+    """16-bit RGB or RGBA PNG bytes → uint16 ``[H, W, 3]`` RGB (alpha
+    dropped); anything else raises ``ValueError``."""
+    (w, h, depth, ctype, _, _, _), _, raw = _read(data)
+    if depth != 16 or ctype not in (2, 6):
+        raise ValueError(f"decode_png16 reads 16-bit RGB or RGBA PNG, got {depth}-bit "
+                         f"colour type {ctype}")
+    c = _CHANNELS[ctype]
+    px = _unfilter(raw, h, w * c * 2, c * 2).view(">u2").reshape(h, w, c)
+    return px[..., :3].astype(np.uint16)

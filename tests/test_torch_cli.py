@@ -20,21 +20,27 @@ a random texture, made with numpy from a seed:
 
 Measured on the CPU: masks equal, flow images 99.84 % and 99.77 % equal,
 framesim ``w_final`` 8.6e-7 off, eventsim ``w_final`` equal.  Also: JPEG
-frames and ``eventsim`` without ``--no-video`` raise, and ``train`` (the
-training slice, not ported) is an unknown command.
+frames and ``eventsim`` without ``--no-video`` raise, ``--mesh`` other than
+``1x1`` raises, and ``train --stage chairs --small --steps 1`` runs on a
+FlyingChairs-shaped layout (``.ppm`` frames, ``.flo`` flows) with the
+chairs stage cut to 64×96 crops and batch 2, writing its checkpoint.
 
 ``deep`` on a 600×600 scene of PNG frames (uavnew2's shape, a 15×15 state
 matrix) with one reference-format RAFT-small checkpoint given to both
 CLIs (``--torch-ckpt``, iters 2): the port's ``track`` records (activity,
 region percentage, boxes) equal the JAX CLI's; ``seg`` and ``predict`` give
-the same activity and region percentages; ``--ckpt`` raises naming the
-training slice.  Measured: records equal.  ``load_scene`` reads that
+the same activity and region percentages; ``--ckpt`` runs ``deep`` on the
+checkpoint ``train`` wrote, with that checkpoint's weights.  Measured:
+records equal.  ``load_scene`` reads that
 scene (frames and gray masks as PNG) with the port's codec into the same
 arrays as the JAX package's through OpenCV.
 """
 
+import argparse
+import contextlib
 import dataclasses
 import gzip
+import io
 import json
 import shutil
 
@@ -131,7 +137,34 @@ def test_eventsim_synthetic(tmp_path, monkeypatch):
         assert json.load(g) == json.load(r)
 
 
-def test_refusals(frames, tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """``train --stage chairs --small --steps 1`` on a FlyingChairs-shaped
+    layout of three synthetic pairs, the chairs stage cut to 64×96 crops and
+    batch 2; returns (checkpoint root, the printed line)."""
+    from nsof_tpu_torch.data import flow_datasets as tfd
+    from nsof_tpu_torch.train import curriculum
+    from nsof_tpu_torch.utils.ppm import encode_ppm
+
+    root = tmp_path_factory.mktemp("train")
+    data = root / "FlyingChairs_release" / "data"
+    data.mkdir(parents=True)
+    pairs = tfd.synthetic_affine_dataset(np.random.default_rng(0), n=3, size=(96, 128))
+    for i, (a, b, flow) in enumerate(pairs):
+        (data / f"{i:05d}_img1.ppm").write_bytes(encode_ppm(a))
+        (data / f"{i:05d}_img2.ppm").write_bytes(encode_ppm(b))
+        tfd.write_flo(data / f"{i:05d}_flow.flo", flow)
+    cut = tuple(dataclasses.replace(s, image_size=(64, 96), batch_size=2)
+                for s in curriculum.RAFT_STANDARD_STAGES)
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+        mp.setattr(curriculum, "RAFT_STANDARD_STAGES", cut)
+        rc = tcli.main(["train", "--data-root", str(root), "--ckpt-root", str(root / "ckpt"),
+                        "--stage", "chairs", "--small", "--steps", "1", "--device", "cpu"])
+    return rc, root / "ckpt", out.getvalue()
+
+
+def test_refusals(frames, tmp_path, monkeypatch, trained):
     (tmp_path / "jpeg").mkdir()
     (tmp_path / "jpeg" / "0.jpg").write_bytes(b"\xff\xd8\xff\xe0")
     with pytest.raises(ValueError, match="JPEG"):
@@ -139,8 +172,12 @@ def test_refusals(frames, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="--no-video"):
         tcli.main(["eventsim", "--synthetic", "--device", "cpu"])
-    with pytest.raises(SystemExit):
-        tcli.main(["train"])
+    with pytest.raises(ValueError, match="1x1"):
+        tcli.main(["train", "--data-root", str(tmp_path), "--mesh", "2x1", "--device", "cpu"])
+    # the training slice runs: one step of the chairs stage, one checkpoint
+    rc, ckpt, printed = trained
+    assert rc == 0 and json.loads(printed.strip().splitlines()[-1]) == {"stages": ["chairs"]}
+    assert sorted(p.name for p in (ckpt / "chairs").iterdir()) == ["1", "metrics.jsonl"]
 
 
 def _png_scene(root):
@@ -180,11 +217,11 @@ def test_load_scene_reads_png_scenes_as_opencv_does(tmp_path):
     assert got.names == want.names and got.num_pairs == want.num_pairs == 2
 
 
-def test_cli_deep_on_a_png_scene(tmp_path, capsys):
+def test_cli_deep_on_a_png_scene(tmp_path, capsys, trained):
     """The port's ``deep`` against the JAX CLI's on one scene and one
     reference-format RAFT-small checkpoint (iters 2): the same records
     (activity, region percentage, tracking boxes); seg and predict run;
-    ``--ckpt`` raises naming the training slice."""
+    ``--ckpt`` runs on the port's training checkpoint."""
     _png_scene(tmp_path)
     torch.manual_seed(0)
     ckpt = tmp_path / "raft-small.pth"
@@ -204,5 +241,14 @@ def test_cli_deep_on_a_png_scene(tmp_path, capsys):
             if task == "track":
                 assert g["boxes"] == w["boxes"] and g["boxes"]
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["pairs"] == 2
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tcli.main(common + ["--ckpt", str(tmp_path), "--device", "cpu"])
+    # the training checkpoint: deep runs RAFT-small with its weights
+    ckpt = trained[1] / "chairs"
+    saved = torch.load(ckpt / "1" / "state.pt", weights_only=True)["model"]
+    model = tcli._raft_model(argparse.Namespace(torch_ckpt=None, small=True, iters=2,
+                                                ckpt=str(ckpt)))
+    assert all(torch.equal(v, saved[k]) for k, v in model.state_dict().items())
+    assert tcli.main(["deep", "--data-root", str(tmp_path), "--scene", "uavnew2", "--iters", "2",
+                      "--task", "track", "--ckpt", str(ckpt), "--out", str(tmp_path / "ckpt"),
+                      "--device", "cpu"]) == 0
+    got = json.loads((tmp_path / "ckpt" / "deep_track.json").read_text())
+    assert len(got) == 2 and all(r["active"] for r in got)

@@ -174,10 +174,9 @@ def test_deep_roi_flow_batch_on_flowformer():
     _close(tdf.deep_roi_flow_batch(mem, prev, nxt, TCFG, tbe), want, BATCH_KEYS)
 
 
-# JAX's model config also carries what only training reads: `remat`, a
-# `dropout` that no preset turns on, and copies of the trainer block, which
-# the port keeps on the experiment alone
-TRAINING_ONLY = {"remat", "dropout", "gamma", "max_flow", "canonical_lr",
+# JAX's model config also carries a `dropout` that no preset turns on and
+# copies of the trainer block, which the port keeps on the experiment alone
+TRAINING_ONLY = {"dropout", "gamma", "max_flow", "canonical_lr",
                  "adamw_decay", "clip", "num_steps", "epsilon"}
 
 
@@ -191,9 +190,9 @@ def test_config_and_presets_match_jax():
             if f.name == "model":
                 assert all(getattr(t.model, g) == getattr(j.model, g)
                            for g in fields - {"compute_dtype"}), name
-                assert (j.model.dropout, j.model.remat) == (0.0, False), name
+                assert (j.model.dropout, j.model.remat, t.model.remat) == (0.0, False, False), name
                 assert all(getattr(j.model, g) == getattr(j, g)
-                           for g in TRAINING_ONLY - {"remat", "dropout"}), name
+                           for g in TRAINING_ONLY - {"dropout"}), name
             else:
                 assert getattr(t, f.name) == getattr(j, f.name), (name, f.name)
     assert (tconfig.TRAIN_SIZE, tconfig.TILE_MIN_OVERLAP) == (jconfig.TRAIN_SIZE,

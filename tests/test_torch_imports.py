@@ -22,6 +22,7 @@ from nsof_tpu_torch.device import frame_sim as tfs
 from nsof_tpu_torch.ops import canny as tcanny
 from nsof_tpu_torch.ops import roi as troi
 from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
+from nsof_tpu_torch.parallel import train as ptrain
 from nsof_tpu_torch.data.scenes import SceneData
 from nsof_tpu_torch.models.flowformer import FlowFormer, FlowFormerConfig
 from nsof_tpu_torch.models.raft import RAFT, RaftConfig
@@ -92,6 +93,21 @@ def test_no_image_library_at_module_level(path):
     assert all(f in allowed for f in found), f"{rel} imports {found}"
 
 
+TRAINING_FILES = ["train/__init__.py", "train/loss.py", "train/optim.py", "train/trainer.py",
+                  "train/curriculum.py", "train/evaluate.py", "parallel/train.py",
+                  "data/flow_datasets.py", "data/imgproc.py", "utils/ppm.py"]
+
+
+@pytest.mark.parametrize("rel", TRAINING_FILES)
+def test_training_modules_are_scanned(rel):
+    """The training slice's modules are among the files scanned above, and
+    import no image library at all (OpenCV's calls are numpy there)."""
+    path = ROOT / "nsof_tpu_torch" / rel
+    assert path in PORT_FILES
+    assert not _image_library_imports(path)
+    assert not {"jax", "jaxlib", "nsof_tpu", "flax", "optax", "orbax"} & set(_imported_roots(path))
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"
@@ -106,6 +122,10 @@ def test_import_leaves_jax_out():
         "import nsof_tpu_torch.data.scenes, nsof_tpu_torch.models.raft\n"
         "import nsof_tpu_torch.models.convert, nsof_tpu_torch.models.flowformer.convert\n"
         "import nsof_tpu_torch.ops.correlation, nsof_tpu_torch.pipelines.deep_flow\n"
+        "import nsof_tpu_torch.train, nsof_tpu_torch.train.curriculum\n"
+        "import nsof_tpu_torch.train.evaluate, nsof_tpu_torch.train.trainer\n"
+        "import nsof_tpu_torch.parallel.train, nsof_tpu_torch.data.flow_datasets\n"
+        "import nsof_tpu_torch.data.imgproc, nsof_tpu_torch.utils.ppm, nsof_tpu_torch.__main__\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'nsof_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
@@ -187,7 +207,16 @@ ENTRY_POINTS = {
                                                                           **kw),
     "run_tracking": lambda c, m, f, g, **kw: trunner.run_tracking(_scene(c, m, f, g), **kw),
     "run_prediction": lambda c, m, f, g, **kw: trunner.run_prediction(_scene(c, m, f, g), **kw),
+    "create_train_state": lambda c, m, f, g, **kw: ptrain.create_train_state(0, cfg=TINY_RAFT,
+                                                                             **kw),
+    "make_train_step": lambda c, m, f, g, **kw: ptrain.make_train_step(
+        *ptrain.create_train_state(0, "cpu", cfg=TINY_RAFT)[:2], **kw),
+    "create_flowformer_state": lambda c, m, f, g, **kw: ptrain.create_flowformer_state(
+        0, cfg=FlowFormerConfig(encoder_depth=1, decoder_depth=1), **kw),
 }
+
+
+TINY_RAFT = RaftConfig(small=True, iters=1)
 
 
 def _raft_backend(**kw):
@@ -223,15 +252,20 @@ def test_entry_point_needs_cuda_or_cpu(monkeypatch, name):
 
 
 def test_cli_deep_needs_cuda_or_cpu(monkeypatch, tmp_path):
-    """The CLI's ``deep`` builds its backend on the CUDA device by default
-    and raises without one (``tests/test_torch_cli.py`` runs it with
-    ``--device cpu``)."""
+    """The CLI's ``deep``, ``train`` and ``validate`` run on the CUDA device
+    by default and raise without one (``tests/test_torch_cli.py`` and
+    ``tests/test_torch_train_evaluate.py`` run them with ``--device cpu``)."""
     from nsof_tpu_torch import cli as tcli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for backend in ("raft", "flowformer"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tcli.main(["deep", "--data-root", str(tmp_path), "--backend", backend])
+    # the training slice's subcommands too
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["train", "--data-root", str(tmp_path), "--stage", "chairs"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["validate", "--dataset", "chairs", "--data-root", str(tmp_path)])
 
 
 @pytest.fixture

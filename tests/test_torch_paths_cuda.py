@@ -9,6 +9,9 @@ K1–K4) and ``stream_masks_chunked`` equal the plain route on 9 frames of
 that cut with a textured block moving (2, 3) px a frame, n_substeps 1000.
 ``deep_roi_flow_batch`` on RAFT-small and RAFT-basic (K1 on RGB windows)
 equals the plain route and, with cuDNN's TF32 off, the CPU within 1e-3 px.
+One RAFT train step (``make_train_step``, 64×96, B = 2) on the card equals
+the CPU port's to the CPU tests' bounds (``chip_smoke.drive_train_parity``),
+launches no kernel of the port and makes no host synchronisation.
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_paths_cuda.py`` (the card's machine has no jax, which the
@@ -158,3 +161,22 @@ def test_deep_roi_flow_batch_on_the_card(cuda_device, small):
         want = tdf.deep_roi_flow_batch(mem.cpu(), prev.cpu(), nxt.cpu(), cfg, cpu)
     assert out["any_active"].all()
     torch.testing.assert_close(out["flow"].cpu(), want["flow"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card(cuda_device):
+    from chip_smoke import drive_train_parity, host_syncs, train_batch
+    from nsof_tpu_torch.models.raft import RaftConfig
+    from nsof_tpu_torch.parallel import train as ptrain
+
+    drive_train_parity(cuda_device)  # raises past the bounds
+    model, tx, state = ptrain.create_train_state(0, cuda_device, cfg=RaftConfig(small=True,
+                                                                              iters=2))
+    step = ptrain.make_train_step(model, tx, cuda_device, iters=2)
+    batch = train_batch(2, 64, 96, seed=4)
+    step(state, batch)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    assert host_syncs(lambda: step(state, batch)) == {}
+    torch.cuda.synchronize()
+    assert not any(_build.LAUNCHES.values()) and state.step == 2

@@ -279,13 +279,12 @@ def test_forward_interpolate_matches_jax():
 
 
 def test_config_matches_jax():
-    # `remat` only changes JAX's backward pass; the port is inference only
-    # and leaves it out until it trains
+    # every field, `remat` (the backward pass's recompute) included
     for small in (False, True):
         j, t = jraft.RaftConfig(small=small), traft.RaftConfig(small=small)
         assert (t.hidden_dim, t.context_dim) == (j.hidden_dim, j.context_dim)
-        fields = {f.name for f in dataclasses.fields(j)} - {"remat"}
+        fields = {f.name for f in dataclasses.fields(j)}
         assert fields == {f.name for f in dataclasses.fields(t)}
         assert all(getattr(j, f) == getattr(t, f) for f in fields - {"compute_dtype"})
-        assert not j.remat
+        assert not t.remat
     assert traft.NORM_EPS == jraft.NORM_EPS
