@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1–K8) from ``nsof_tpu_torch/csrc``, holds
+Builds the port's CUDA kernels (K1–K9) from ``nsof_tpu_torch/csrc``, holds
 each, and the float32 forms of K3 and K4, against its plain PyTorch version
-on the card (K8, the stream's device scan, at ``K8_CASES``), then drives
-three paths of ``seg_batch_fast``:
+on the card (K8, the stream's device scan, at ``K8_CASES``; K9, the YOLO
+post step's NMS, at ``K9_CASES``), then drives three paths of
+``seg_batch_fast``:
 
 - the main path on bench.py's 640×480 workload (256×384 window, grasp
   preset, memsize 80, warp radius 3) at B = 256, the fused route (K1–K4);
@@ -64,7 +65,10 @@ Then the entry points a user calls, at 640×480 and 480×640:
   directly, no kernel launched;
 - ``cli``: ``python -m nsof_tpu_torch.cli stream`` and ``flow`` in
   processes of their own on a folder of PNG frames, their outputs equal
-  to ``stream_masks_chunked`` and the exact Farnebäck's flow image.
+  to ``stream_masks_chunked`` and the exact Farnebäck's flow image; then
+  ``eventsim --synthetic --no-video`` (simulated in memory where h5py is not
+  installed) and ``visualize`` on the npz it writes, one keyframe every
+  EVENT_KEY_EVERY frames in its ``manifest.json``.
 
 Then the deep backends, on scripts/bench_deep.py's workload A (480×640
 RGB frames at 1/3 scale, a 256×384 window, grasp at memsize 80, 26 on the
@@ -96,7 +100,9 @@ phase's seconds printed:
 - ``train_parity``: one train step of RAFT-small and RAFT-basic at the CPU
   tests' size (64×96, B = 2, 2 iterations) from the same seeded weights and
   batch on the card (cuDNN TF32 off) and on the CPU port: loss within
-  1e-5, gradients and updated parameters to the CPU tests' bounds;
+  1e-5, gradients and updated parameters to the CPU tests' bounds; then the
+  forward and backward at PyTorch's defaults (TF32 convolutions) beside the
+  TF32-off one: loss and gradient gaps within the TRAIN_TF32_* bounds;
 - ``train_raft``: RAFT-basic at the chairs stage of RAFT_STANDARD_STAGES
   uncut (batch 10, 368×496 crops, 12 iterations) on synthetic pairs at
   FlyingChairs' 384×512 through the chairs augmentor, at PyTorch's
@@ -114,10 +120,27 @@ phase's seconds printed:
   then, side by side, ``deep --ckpt`` on its checkpoint over a PNG scene
   and ``validate --dataset chairs`` with it, each exit 0.
 
+Then the detection slice (``detect``): K9 against its plain loop at
+``K9_CASES``; YOLOv8n at the JAX detector's defaults (80 classes, imgsz 640,
+conf 0.25, iou 0.45, max_det 300) on seeded synthetic weights (the head
+scaled so that the image ranks the scores), its raw outputs on a
+letterboxed 640×480 frame against the CPU port's (TF32 off and at the
+defaults), ``postprocess`` of them with K9 (one launch) equal to the plain
+``nms``'s and to the CPU port's on the same decoded outputs, and the
+card's detections (TF32 off) against the CPU port's; a detector call's parts (letterbox, upload, forward,
+decode and sort, K9, download and mapping) on the frame and on a ROI crop,
+its launches and host syncs, GFLOP; ``run_detection`` on the runner's scene
+with ``TorchYoloDetector`` (K9 once a detector call, counted from zero
+just before the run) and ``ThresholdBlobDetector``: the YOLO time columns,
+the CSV's 10 YOLO columns, every region detection inside its region box;
+then YOLOv8 s, m, l and x, one forward each at 640².
+
 Last, each kernel is timed at its path's level-0 shapes beside its bound
 and its plain version (K7 also at radius 8; K8 at the stream's shapes,
 its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound; K1 also at the
-deep batch's RGB shapes).
+deep batch's RGB shapes; K9 at the YOLO post step's first launch in
+``run_detection``, with its chain bound and ``torchvision.ops.nms`` where
+that imports).
 
 Each phase prints one JSON line.  The line before the last is the card's
 name and power limit as ``nvidia-smi`` reports them, the one before that
@@ -136,6 +159,7 @@ import copy
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -155,8 +179,10 @@ from nsof_tpu_torch.data.scenes import SceneData
 from nsof_tpu_torch.device import frame_sim as tfs
 from nsof_tpu_torch.device.model import DEFAULT_PARAMS
 from nsof_tpu_torch.device.synthetic import generate_synthetic_events
+from nsof_tpu_torch.models import yolov8 as tyolo
 from nsof_tpu_torch.models.flowformer import FlowFormer, get_experiment
 from nsof_tpu_torch.models.raft import RAFT, RaftConfig
+from nsof_tpu_torch.ops import components as tcomp
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 from nsof_tpu_torch.ops.farneback import PRESETS, _gaussian_blur_kernel, _poly_exp_coeffs
@@ -166,6 +192,7 @@ from nsof_tpu_torch.pipelines.prediction import (prediction_batch_fast, predicti
 from nsof_tpu_torch.pipelines import runner as trunner
 from nsof_tpu_torch.pipelines.deep_flow import (DeepBackend, deep_full_flow_step,
                                                 deep_roi_flow_batch, deep_roi_flow_step)
+from nsof_tpu_torch.pipelines import detection as tdet
 from nsof_tpu_torch.pipelines import stream as tstream
 from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast, seg_stages, seg_step
 from nsof_tpu_torch.pipelines.tracking import tracking_batch_fast, tracking_stages
@@ -211,8 +238,9 @@ K1_CASES = {
                              [-5, 1000, -1000, 70], [-7, 200, -1000, 95]),
     "batch_1": ((1, H, W), torch.uint8, WIN, [31], [77]),
 }
-# K2 beyond the main path: name → (B, hk, wk, hp, wp, n, blur taps, margin);
-# n 1 and 5 (the template instances) and 7 (the generic kernel), no blur and
+# K2 beyond the main path: name → (B, hk, wk, hp, wp, n, blur taps, margin[,
+# poly_sigma, default 1.2]); n 1 and 5 (the template instances), 7 and 10
+# (the generic kernel), no blur and
 # the 3-tap blur, margin (0, 0) and (8, 16), canvases larger than the image
 # on both axes, widths that are not a multiple of the 128-column strip (and
 # one that is not a multiple of 4), runs of 64 rows with a ragged end, B = 1
@@ -225,6 +253,9 @@ K2_CASES = {
     "n7_plain": (2, 33, 41, 33, 41, 7, 0, (0, 0)),
     "width_61": (2, 30, 37, 45, 61, 5, 3, (0, 0)),
     "batch_1_level0": (1, WIN[0], WIN[1], WIN[0], WIN[1], 5, 3, (8, 16)),
+    # autodriving's and uav's poly_n 10 (poly_sigma 1.05) on the generic kernel
+    "n10_plain": (2, 40, 50, 40, 50, 10, 0, (0, 0), 1.05),
+    "n10_blur_margin": (2, 33, 41, 64, 64, 10, 3, (8, 16), 1.05),
 }
 # K3 (the fused route's first system, both M types, on a 40×50 level's
 # 64×64 canvas with its (8, 16) margin) and K5 (float32, on a 97×131 level
@@ -289,6 +320,8 @@ SERVE_FLOWS = 3
 SCENE_FRAMES = 9
 # extra arguments of the CLI runs (a CPU rehearsal passes --device cpu)
 CLI_ARGS: list[str] = []
+# the CLI's visualize on eventsim's result: a keyframe every this many frames
+EVENT_KEY_EVERY = 100
 # the deep backends on scripts/bench_deep.py's workload A: 480×640 RGB
 # frames (1/3 scale), a 256×384 window, grasp at memsize 80 (26 on the deep
 # grid of 18×24 cells, a 3×3-cell block active), six shifted variants;
@@ -328,6 +361,60 @@ TRAIN_STEPS = 5
 TRAIN_FF_DEPTH = 4
 TRAIN_FF_B = 2
 GRAD_RTOL, GRAD_ATOL, GRAD_L2 = 1e-4, 5e-3, 2e-3
+# one train step at PyTorch's defaults (cuDNN TF32 convolutions) against the
+# TF32-off step on the same batch and weights (train_parity): the loss's
+# relative gap, the gradients' relative L2 gap and their largest gap (of the
+# model's largest gradient).  Read on an H100 (RAFT-small, RAFT-basic):
+# 1.3e-5, 3.7e-5; 3.4e-3, 2.7e-3; 5.7e-4, 3.1e-4.  Each limit is ≈ 4× the
+# largest reading
+TRAIN_TF32_LOSS, TRAIN_TF32_GRAD_L2, TRAIN_TF32_GRAD_MAX = 1.5e-4, 1.5e-2, 2.5e-3
+# the detection slice: YOLOv8n at the JAX detector's defaults (80 classes,
+# imgsz 640, conf 0.25, iou 0.45, max_det 300) on synthetic_state_dict's
+# seeded weights, the head scaled (yolo_state); the other scales one
+# forward each at 640²
+YOLO_IMGSZ = 640
+YOLO_SCALES = ("s", "m", "l", "x")
+# the card's raw outputs against the CPU port's, of the largest magnitude of
+# each output's box channels and class channels apart: with cuDNN's TF32 off
+# (float32, sums in other orders; read at 9.3e-7 on an H100) and at
+# PyTorch's defaults (TF32 convolutions; read at 6.9e-4, 3.3e-4 on the
+# unscaled head, for which the limit was set ≈ 4× the reading)
+YOLO_F32_REL = 1e-3
+YOLO_TF32_REL = 1.5e-3
+# the card's postprocess (TF32 off) against the CPU port's on the same
+# frame: equal slots and classes, the boxes (px) and scores within these
+# (read at 6.1e-5 px and 2.2e-6 on an H100; at the defaults TF32 moves
+# the detections themselves: 10 on the card, 12 on the CPU)
+YOLO_BOX_TOL, YOLO_SCORE_TOL = 1e-3, 2e-5
+# yolo_state's class bias shift.  The CPU fixture's 3 (at imgsz 160) leaves
+# every one of the 8,400 anchors of the runner scene's frame above conf at
+# 640², all scores within 2.5e-2 of 1 and the top 300 ulps apart; 14 leaves
+# 275 candidates there, scored 0.25–0.85
+YOLO_CLS_SHIFT = 14
+# K9 against its plain loop, IoU threshold 0.45: name → (B, N, inputs,
+# plus_one).  YOLO's 300 candidates at B = 1 and 8, N = 1, no and every
+# candidate, equal scores, boxes with the class offset (up to 79 · 7680
+# px), inclusive widths, zero-area boxes (0/0 IoU), NaN scores and
+# coordinates, a row wider than a block (1,500 > 1,024 threads)
+K9_CASES = {
+    "yolo_n300_b1": (1, 300, "random", False),
+    "yolo_n300_b8": (8, 300, "random", False),
+    "n1": (4, 1, "all", False),
+    "no_candidates": (2, 300, "none", False),
+    "all_candidates": (2, 300, "all", False),
+    "equal_scores": (2, 300, "ties", False),
+    "class_offset": (2, 300, "class_offset", False),
+    "plus_one": (2, 300, "random", True),
+    "zero_area": (2, 300, "zero_area", False),
+    "nan": (2, 300, "nan", False),
+    "n1500_b3": (3, 1500, "random", False),
+}
+K9_IOU = 0.45
+# one dependent step of K9 as reckoned for its chain bound: two 5-level warp
+# shuffle trees (~30 cycles a level), three barriers (~40 cycles each) and
+# the pick's IoU (~25 dependent float32 operations at 4 cycles, a division
+# at ~40), at the H100 SXM's 1.98 GHz boost clock
+K9_STEP_NS = (10 * 30 + 3 * 40 + 25 * 4 + 40) / 1.98
 ROOT = pathlib.Path(__file__).resolve().parent
 # one dependent step of K8 as reckoned for its chain bound: 8 float32
 # operations at 4 cycles and the two special-function operations (log2,
@@ -362,6 +449,8 @@ SOURCES = {
     "device_scan": ("nsof_tpu_torch/csrc/device_scan.cu",
                     "nsof_tpu/pipelines/stream.py:48 (not a TPU kernel: XLA lax.scan)",
                     "device_scan_kernel"),
+    "nms": ("nsof_tpu_torch/csrc/nms.cu",
+            "nsof_tpu/ops/components.py:164 (not a TPU kernel: XLA fori_loop)", "nms_kernel"),
 }
 
 
@@ -475,11 +564,11 @@ def exact_check(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
 
 def k2_case(name: str, dev):
     """K2_CASES[name] as a kernel call and its plain version's call."""
-    b, hk, wk, hp, wp, n, taps, margin = K2_CASES[name]
+    b, hk, wk, hp, wp, n, taps, margin, *sigma = K2_CASES[name]
     rng = np.random.default_rng(len(name))
     img = torch.from_numpy((rng.random((b, hk, wk)) * 255).astype(np.float32)).to(dev)
     blur = _gaussian_blur_kernel(taps, 0.0) if taps else None
-    args = (img, n, 1.2, hp, wp, blur, margin)
+    args = (img, n, sigma[0] if sigma else 1.2, hp, wp, blur, margin)
     return (lambda: tff.poly_expansion(*args)), (lambda: tff._poly_expansion_plain(*args))
 
 
@@ -974,6 +1063,64 @@ def check_k8(errs: dict, dev) -> None:
           "max_abs_err": err, "tolerance": 0})
 
 
+def k9_inputs(name: str, dev):
+    """K9_CASES[name]'s boxes ``[B, N, 4]``, scores ``[B, N]`` and
+    candidates on the card, and its ``plus_one``: boxes clustered on eight
+    centres of a 640-px square (many overlaps), uniform scores, the
+    candidates scoring above 0.3, edited as the case says."""
+    b, n, kind, plus_one = K9_CASES[name]
+    rng = np.random.default_rng(len(name) * 7 + n)
+    centres = rng.uniform(0, 640, (b, 8, 2))
+    xy = centres[np.arange(b)[:, None], rng.integers(0, 8, (b, n))]
+    xy = xy + rng.normal(0, 6, (b, n, 2))
+    wh = rng.uniform(8, 120, (b, n, 2))
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)
+    scores = rng.random((b, n)).astype(np.float32)
+    valid = scores > 0.3
+    if kind == "none":
+        valid[:] = False
+    elif kind == "all":
+        valid[:] = True
+    elif kind == "ties":  # four levels, half the boxes at exactly 0.5
+        scores = (np.round(scores * 3) / 3).astype(np.float32)
+        scores[:, ::2] = 0.5
+    elif kind == "class_offset":  # postprocess's offset, added in float32
+        boxes += rng.integers(0, 80, (b, n, 1)).astype(np.float32) * np.float32(7680.0)
+    elif kind == "zero_area":  # zero widths and heights, and equal zero-area boxes
+        boxes[:, ::3, 2] = boxes[:, ::3, 0]
+        boxes[:, 1::3, 3] = boxes[:, 1::3, 1]
+        boxes[:, 3::9] = boxes[:, :1]
+    elif kind == "nan":
+        scores[:, 5::37] = np.nan
+        boxes[:, 11::41, 1] = np.nan
+        boxes[:, 17::43, 2] = np.nan
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return t(boxes), t(scores), t(valid), plus_one
+
+
+def k9_case(name: str, dev):
+    """K9_CASES[name] as a kernel call and its plain version's call, each
+    giving the ``[B, N]`` keep mask."""
+    boxes, scores, valid, plus_one = k9_inputs(name, dev)
+    args = (boxes, scores, valid, K9_IOU, plus_one)
+    return (lambda: tcomp.nms_batch(*args)), (lambda: tcomp.nms(*args))
+
+
+def check_k9(errs: dict, dev) -> None:
+    """K9 against its plain version at every K9_CASES case: the keep masks
+    required equal."""
+    kept = {}
+    for name in K9_CASES:
+        kernel, plain = k9_case(name, dev)
+        got, ref = kernel(), plain()
+        if got.dtype != torch.bool or got.shape != ref.shape or not torch.equal(got, ref):
+            raise AssertionError(f"K9 {name}: the keep mask differs from the plain nms's")
+        kept[name] = int(ref.sum())
+    errs["nms"] = 0
+    emit({"phase": "check", "kernel": "nms", "cases": list(K9_CASES), "kept": kept,
+          "iou_thresh": K9_IOU, "max_abs_err": 0, "tolerance": 0})
+
+
 def stream_frames(salt: int, dev) -> torch.Tensor:
     """scripts/bench_stream.py's stream (``make_stream``): a static texture
     with a 96×96 bright block moving 2 px down and 3 px right a frame,
@@ -1409,6 +1556,19 @@ def block_masks(t: int) -> np.ndarray:
     return gt
 
 
+def runner_scene(dev):
+    """(SceneData, gray frames on the card, state maps): the stream's first
+    SCENE_FRAMES frames at 640×480, BGR mixed from the gray, the moving block
+    as GT; pair t gated by the stream's state map after pair t."""
+    cfg = bench_cfg()
+    frames = stream_frames(0, dev)[:SCENE_FRAMES]
+    mem = tstream.stream_masks(frames, cfg, stream_sim())["mem_gray"]
+    mem = torch.cat([mem[:1], mem]).cpu().numpy()
+    scene = SceneData(cfg, bgr(frames).cpu().numpy(), frames.cpu().numpy(), mem,
+                      block_masks(SCENE_FRAMES), [f"{i:04d}.png" for i in range(SCENE_FRAMES)])
+    return scene, frames, mem
+
+
 def drive_runner(dev) -> None:
     """The scene runners on a SceneData of the stream's first SCENE_FRAMES
     frames at 640×480 (BGR mixed from the gray, the block as GT), pair t
@@ -1417,11 +1577,7 @@ def drive_runner(dev) -> None:
     row a pair; the masks, boxes and predictions equal the stages called
     directly; no kernel is launched (the exact path)."""
     cfg = bench_cfg()
-    frames = stream_frames(0, dev)[:SCENE_FRAMES]
-    mem = tstream.stream_masks(frames, cfg, stream_sim())["mem_gray"]
-    mem = torch.cat([mem[:1], mem]).cpu().numpy()
-    scene = SceneData(cfg, bgr(frames).cpu().numpy(), frames.cpu().numpy(), mem,
-                      block_masks(SCENE_FRAMES), [f"{i:04d}.png" for i in range(SCENE_FRAMES)])
+    scene, frames, mem = runner_scene(dev)
     n = scene.num_pairs
     runs = (("segmentation", trunner.run_segmentation, reporting.SEG_COLUMNS),
             ("tracking", trunner.run_tracking, reporting.OB_COLUMNS),
@@ -1516,9 +1672,47 @@ def drive_cli(dev) -> None:
             flow = farneback(frames[i], frames[i + 1], PRESETS["grasp"])
             if not np.array_equal(got, flow_to_image(flow).cpu().numpy()):
                 raise AssertionError(f"CLI flow: image {i} differs from the direct one")
+        ev = drive_eventsim_cli(d / "eventsim", seconds)
     emit({"phase": "cli", "frames": SCENE_FRAMES, "frame": [H, W], "seconds": seconds,
           "masks_equal": SCENE_FRAMES - 1, "active_masks": int((ref > 0).any(axis=(1, 2)).sum()),
-          "flow_images_equal": 2})
+          "flow_images_equal": 2, **ev})
+
+
+def drive_eventsim_cli(ev: pathlib.Path, seconds: dict) -> dict:
+    """``eventsim --synthetic --no-video`` in a process of its own in ``ev``
+    (the stream simulated in memory where h5py is not installed), then
+    ``visualize`` on the npz it writes: the resistances finite, one keyframe
+    every EVENT_KEY_EVERY frames in ``manifest.json``, each a PNG of the
+    grid's shape."""
+    ev.mkdir()
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))}
+    runs = (("eventsim", ["eventsim", "--synthetic", "--no-video", *CLI_ARGS]),
+            ("visualize", ["visualize", "synthetic.V1.npz", "--mode", "delta", "--value",
+                           "state", "--key-every", str(EVENT_KEY_EVERY)]))
+    printed = {}
+    for name, args in runs:
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "nsof_tpu_torch.cli", *args], cwd=ev,
+                              env=env, capture_output=True, text=True, timeout=600)
+        seconds[name] = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI {name}: exit {proc.returncode}\n{proc.stderr}")
+        printed[name] = proc.stdout.strip().splitlines()[0]
+    res = np.load(ev / "synthetic.V1.npz")["resistances"]
+    manifest = json.loads((ev / "synthetic.V1_keyframes" / "manifest.json").read_text())
+    want = -(-res.shape[0] // EVENT_KEY_EVERY)
+    if not np.isfinite(res).all() or len(manifest["frames"]) != want:
+        raise AssertionError(f"CLI eventsim/visualize: {res.shape} resistances, "
+                             f"{len(manifest['frames'])} keyframes (want {want})")
+    for frame in manifest["frames"]:
+        img = decode_png((ev / "synthetic.V1_keyframes" / frame["path"]).read_bytes())
+        if img.shape != (*res.shape[1:], 3):
+            raise AssertionError(f"CLI visualize: keyframe {frame['path']} is {img.shape}")
+    return {"eventsim": {"resistances": list(res.shape), "keyframes": len(manifest["frames"]),
+                         "key_every": EVENT_KEY_EVERY,
+                         "hdf5_written": (ev / "synthetic.hdf5").exists(),
+                         "printed": printed["eventsim"]}}
 
 
 def deep_cfg():
@@ -1924,14 +2118,27 @@ def deep_k1_time(launches: dict, dev) -> dict:
 # ── the training slice ───────────────────────────────────────────────────
 
 
-def batch_grads(model, batch: dict, dev, iters: int) -> dict:
+def batch_grads(model, batch: dict, dev, iters: int, with_loss: bool = False):
     """The gradients of one forward and backward pass of RAFT ``model`` on
-    ``batch`` (no optimizer step), by parameter name, on the CPU."""
+    ``batch`` (no optimizer step), by parameter name, on the CPU; with
+    ``with_loss``, (the loss, the gradients)."""
     b = ptrain.to_device(batch, dev)
     model.zero_grad(set_to_none=True)
     loss, _ = sequence_loss(model(b["image1"], b["image2"], iters=iters), b["flow"], b["valid"])
     loss.backward()
-    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return (loss.item(), grads) if with_loss else grads
+
+
+def grad_gap(got: dict, want: dict) -> dict:
+    """``got``'s gradients against ``want``'s: the relative L2 gap over the
+    whole gradient and the largest gap of an element, of the model's
+    largest gradient."""
+    top = max(g.abs().max().item() for g in want.values())
+    worst = max((got[n] - ref).abs().max().item() for n, ref in want.items())
+    sq_err = sum(float(((got[n] - ref).double() ** 2).sum()) for n, ref in want.items())
+    sq_ref = sum(float((ref.double() ** 2).sum()) for ref in want.values())
+    return {"grad_l2_rel_gap": (sq_err / sq_ref) ** 0.5, "grad_max_gap_of_model_largest": worst / top}
 
 
 def grad_check(got: dict, want: dict, what: str) -> dict:
@@ -2007,6 +2214,25 @@ def drive_train_parity(dev) -> None:
           "precision": "float32 (cuDNN TF32 off)", "tolerances": {
               "loss_rel": 1e-5, "grad": f"{GRAD_RTOL}·tensor max + {GRAD_ATOL}·model max",
               "grad_l2": GRAD_L2, "params": "2·lr0 + 1e-6·max|p|"}, **out})
+    # the step at PyTorch's defaults (TF32 convolutions, as train_raft times
+    # it) beside the TF32-off step, from the same weights and batch
+    tf32 = {}
+    for kind in ("small", "basic"):
+        model = ptrain.create_train_state(0, "cpu", cfg=RaftConfig(small=kind == "small",
+                                                                   iters=2))[0].to(dev)
+        with f32_convs():
+            loss_off, grads_off = batch_grads(model, batch, dev, 2, with_loss=True)
+        loss_tf32, grads_tf32 = batch_grads(model, batch, dev, 2, with_loss=True)
+        tf32[kind] = {"loss": loss_tf32, "loss_rel_gap": abs(loss_tf32 - loss_off) / loss_off,
+                      **grad_gap(grads_tf32, grads_off)}
+        r = tf32[kind]
+        if not (r["loss_rel_gap"] <= TRAIN_TF32_LOSS and r["grad_l2_rel_gap"] <= TRAIN_TF32_GRAD_L2
+                and r["grad_max_gap_of_model_largest"] <= TRAIN_TF32_GRAD_MAX):
+            raise AssertionError(f"train_parity {kind}: TF32 against float32 {r}")
+    emit({"phase": "train_parity_tf32", "size": [64, 96], "batch": 2, "iters": 2,
+          "precision": "PyTorch's defaults (cuDNN TF32) against cuDNN TF32 off",
+          "tolerances": {"loss_rel": TRAIN_TF32_LOSS, "grad_l2_rel": TRAIN_TF32_GRAD_L2,
+                         "grad_max_of_model_largest": TRAIN_TF32_GRAD_MAX}, **tf32})
 
 
 def chairs_samples(n: int, seed: int):
@@ -2244,6 +2470,290 @@ def drive_train_cli(dev, samples) -> None:
     emit({"phase": "train_cli", "pairs": len(samples), "native": list(TRAIN_NATIVE),
           "seconds": seconds, "printed": printed, "checkpoint_steps": steps,
           "card": smi_line()})
+
+
+def yolo_state(scale: str) -> dict:
+    """The converted state dict of YOLOv8-``scale`` on synthetic_state_dict's
+    weights of seed 0, the head's last class and box convolutions scaled as
+    tests/test_torch_detection.py's fixture scales them (×100 and ×10), the
+    class biases lowered by YOLO_CLS_SHIFT.  The synthetic weights alone
+    give class scores within 1e-6 of each other, so float32 rounding, not
+    the image, would rank them."""
+    cfg = tyolo.YoloConfig(scale)
+    state = tyolo.synthetic_state_dict(cfg, seed=0)
+    for s in range(3):
+        state[f"model.22.cv3.{s}.2.weight"] = state[f"model.22.cv3.{s}.2.weight"] * 100
+        state[f"model.22.cv3.{s}.2.bias"] = state[f"model.22.cv3.{s}.2.bias"] - YOLO_CLS_SHIFT
+        state[f"model.22.cv2.{s}.2.weight"] = state[f"model.22.cv2.{s}.2.weight"] * 10
+    return tyolo.convert_yolov8(state, cfg)
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over want's largest magnitude, of each output's box
+    channels and class channels apart (the class logits are the larger),
+    the largest across them."""
+    box = 4 * tyolo.REG_MAX
+    return max((g.detach().cpu()[:, part] - w[:, part]).abs().max().item()
+               / w[:, part].abs().max().item()
+               for g, w in zip(got, want) for part in (slice(None, box), slice(box, None)))
+
+
+def post_gap(got: dict, want: dict) -> dict:
+    """The card's ``postprocess`` output against the CPU port's: the slots
+    and classes required equal, the boxes' and scores' largest gaps."""
+    got = {k: v.cpu() for k, v in got.items()}
+    if not (torch.equal(got["valid"], want["valid"])
+            and torch.equal(got["classes"], want["classes"])):
+        raise AssertionError(f"postprocess: {int(got['valid'].sum())} detections on the card, "
+                             f"{int(want['valid'].sum())} on the CPU, or other classes")
+    return {k: (got[k] - want[k]).abs().max().item() for k in ("boxes", "scores")}
+
+
+@contextlib.contextmanager
+def yolo_nms(fn):
+    """``postprocess`` with ``fn`` as its NMS (the plain ``nms``, or a
+    recording wrapper of K9)."""
+    saved = tyolo.nms_batch
+    tyolo.nms_batch = fn
+    try:
+        yield
+    finally:
+        tyolo.nms_batch = saved
+
+
+def detector_parts(det, img: np.ndarray) -> dict:
+    """One detector call on ``img`` part by part, each ended by a
+    synchronisation (host clock, ms): the letterbox on the host, the upload,
+    the forward, the decode and post step, within it K9 (CUDA events), the
+    download and mapping; medians of TIME_N calls after TIME_WARM."""
+    samples = collections.defaultdict(list)
+    for i in range(TIME_WARM + TIME_N):
+        times = {}
+
+        def part(name, fn):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - start) * 1e3
+            return out
+
+        events = []
+
+        def timed_nms(*args, **kw):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = tcomp.nms_batch(*args, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out
+
+        canvas, gain, top, left = part("letterbox", lambda: det.letterbox(img))
+        x = part("upload", lambda: det.upload(canvas))
+        with torch.no_grad():
+            outs = part("forward", lambda: det.model(x))
+            with yolo_nms(timed_nms):
+                post = part("decode_and_post", lambda: {k: v[0] for k, v in tyolo.postprocess(
+                    *tyolo.decode_predictions(outs, det.config.num_classes),
+                    det.conf, det.iou).items()})
+        times["k9"] = events[0][0].elapsed_time(events[0][1])
+        times["decode_and_sort"] = times["decode_and_post"] - times["k9"]
+        part("download_and_map",
+             lambda: det.detections(det.download(post), img.shape, gain, top, left))
+        start = time.perf_counter()
+        det(img)
+        times["call"] = (time.perf_counter() - start) * 1e3
+        if i >= TIME_WARM:
+            for k, v in times.items():
+                samples[k].append(v)
+    return {k: float(np.median(v)) for k, v in samples.items()}
+
+
+def drive_detect(dev) -> tuple[dict, dict]:
+    """The detection slice at full width: YOLOv8n (80 classes, imgsz 640,
+    conf 0.25, iou 0.45, max_det 300) on seeded synthetic weights.
+
+    - its raw outputs on a letterboxed 640×480 frame against the CPU port's,
+      within YOLO_F32_REL (TF32 off) and YOLO_TF32_REL (the defaults);
+    - ``postprocess`` of the card's decoded outputs with K9 (one launch),
+      with the plain ``nms`` and on the CPU: equal outputs; the card's
+      detections (TF32 off) against the CPU port's: equal slots and classes,
+      boxes and scores within YOLO_BOX_TOL and YOLO_SCORE_TOL;
+    - the detector's parts on the full frame and on a ROI crop, the launches
+      and host syncs of a call, GFLOP;
+    - ``run_detection`` on the runner's 640×480 scene (counts zeroed just
+      before and read just after: K9 once a detector call) with the YOLO
+      and the blob detector: the YOLO time columns, the CSV's 10 columns,
+      every region detection inside its region box;
+    - YOLOv8 s, m, l and x: one forward each at 640².
+
+    Returns K9's launch count on ``run_detection`` and the inputs of its
+    first launch there (the kernel line's shapes)."""
+    cfg = tyolo.YoloConfig()
+    state = yolo_state("n")
+    det = tdet.TorchYoloDetector(state, cfg, imgsz=YOLO_IMGSZ, device=dev)
+    scene, _, _ = runner_scene(dev)
+    frame = scene.frames_bgr[1]
+    canvas, _, _, _ = det.letterbox(frame)
+    x = det.upload(canvas)
+    cpu_model = tyolo.YOLOv8(cfg)
+    cpu_model.load_state_dict(state)
+    with torch.no_grad():
+        ref = cpu_model(x.cpu())
+        with f32_convs():
+            outs_f32 = det.model(x)
+        f32_err = rel_err(outs_f32, ref)
+        outs = det.model(x)
+        tf32_err = rel_err(outs, ref)
+    shapes = [list(o.shape) for o in outs]
+    if shapes != [[1, 144, 80, 80], [1, 144, 40, 40], [1, 144, 20, 20]]:
+        raise AssertionError(f"YOLOv8n outputs {shapes}")
+    if not (f32_err <= YOLO_F32_REL and tf32_err <= YOLO_TF32_REL):
+        raise AssertionError(f"YOLOv8n card vs CPU: {f32_err} (TF32 off), {tf32_err} (defaults)")
+    boxes, scores = tyolo.decode_predictions(outs, cfg.num_classes)
+    launches, post = launched_by(lambda: tyolo.postprocess(boxes, scores))
+    if launches != {"nms": 1}:
+        raise AssertionError(f"postprocess launched {launches}, not K9 once")
+    with yolo_nms(tcomp.nms):
+        plain = tyolo.postprocess(boxes, scores)
+    for k in post:
+        if not torch.equal(post[k], plain[k]):
+            raise AssertionError(f"postprocess {k} with K9 differs from the plain nms's")
+    # the CPU port's post step on the card's decoded outputs: equal; then
+    # the card's detections (TF32 off) against the CPU port's on this frame
+    cpu_post = tyolo.postprocess(boxes.cpu(), scores.cpu())
+    for k in post:
+        if not torch.equal(post[k].cpu(), cpu_post[k]):
+            raise AssertionError(f"postprocess {k} on the card differs from the CPU port's")
+    post_f32 = tyolo.postprocess(*tyolo.decode_predictions(outs_f32, cfg.num_classes))
+    gap = post_gap(post_f32, tyolo.postprocess(*tyolo.decode_predictions(ref, cfg.num_classes)))
+    if not (gap["boxes"] <= YOLO_BOX_TOL and gap["scores"] <= YOLO_SCORE_TOL):
+        raise AssertionError(f"postprocess card vs CPU: {gap}")
+    with torch.no_grad():
+        gflop = flops_of(lambda: det.model(x)) / 1e9
+        forward_ms = time_ms(lambda: det.model(x), iters=TIME_N, warm=TIME_WARM)
+    emit({"phase": "detect_forward", "model": "yolov8n", "imgsz": YOLO_IMGSZ, "outputs": shapes,
+          "rel_err_tf32_off": f32_err, "rel_err_defaults": tf32_err,
+          "tolerances": {"tf32_off": YOLO_F32_REL, "defaults": YOLO_TF32_REL},
+          "post_valid": int(post["valid"].sum()), "post_equal_plain": True,
+          "post_equal_cpu_post": True, "post_valid_tf32_off": int(post_f32["valid"].sum()),
+          "post_classes": sorted(set(post["classes"][post["valid"]].tolist())),
+          "post_gap_cpu_tf32_off": gap,
+          "post_tolerances": {"boxes_px": YOLO_BOX_TOL, "scores": YOLO_SCORE_TOL},
+          "forward_ms": forward_ms, "gflop": gflop, "card": smi_line()})
+
+    # the detector's parts on the full frame and the first pair's ROI crop
+    roi = troi.roi_boxes(torch.from_numpy(scene.mem_gray[1:]).to(dev), H, W, scene.cfg.roi)
+    i = int(roi["any_active"].int().argmax())
+    if not bool(roi["any_active"][i]):
+        raise AssertionError("detect: no pair of the scene has an active region")
+    x0, y0, x1, y1 = roi["merged"][i].tolist()
+    crop = scene.frames_bgr[i + 1][y0:y1, x0:x1]
+    for name, img in (("full", frame), ("roi", crop)):
+        parts = detector_parts(det, img)
+        trace = device_trace(lambda: det(img), parts["call"], 1, ["nms"], path=f"detect_{name}")
+        syncs = host_syncs(lambda: det(img))
+        emit({"phase": "detect_parts", "input": name, "shape": list(img.shape),
+              "ms": parts, "host_syncs": sum(syncs.values()), "sync_lines": syncs,
+              "device_launches": trace.get("device_launches"), "busy_ms": trace["busy_ms"],
+              "idle_share": trace.get("idle_share_of_timed_batch"),
+              "top": trace.get("top", [])[:8], "card": smi_line()})
+
+    # run_detection: the slice's main path, then the blob detector
+    seen = []
+
+    def recording(boxes, scores, valid, iou, plus_one=True):
+        seen.append((boxes, scores, valid, iou, plus_one))
+        return tcomp.nms_batch(boxes, scores, valid, iou, plus_one)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = {}
+        for kind, detector in (("yolo", det), ("blob", tdet.ThresholdBlobDetector(150))):
+            csv_path = pathlib.Path(tmp) / f"{kind}.csv"
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            with yolo_nms(recording):
+                start = time.perf_counter()
+                res = tdet.run_detection(scene, detector, csv_path, device=dev)
+                seconds = time.perf_counter() - start
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+            calls = len(res) + sum(r.region_box is not None for r in res)
+            want = {"nms": calls} if kind == "yolo" else {}
+            if launched != want:
+                raise AssertionError(f"run_detection {kind}: launched {launched}, want {want}")
+            if kind == "yolo":
+                k9_launches = launched["nms"]
+            lines = csv_path.read_text().splitlines()
+            head = lines[0].split(",")
+            if head != reporting.SEG_COLUMNS + tdet.YOLO_COLUMNS or len(lines) != len(res) + 1:
+                raise AssertionError(f"run_detection {kind}: CSV header {head}, {len(lines)} lines")
+            for r in res:
+                if r.region_box:
+                    bx0, by0, bx1, by1 = r.region_box
+                    for d in r.region_detections:
+                        if not (bx0 <= d.bbox[0] <= d.bbox[2] <= bx1
+                                and by0 <= d.bbox[1] <= d.bbox[3] <= by1):
+                            raise AssertionError(f"{kind}: {d.bbox} outside {r.region_box}")
+            region = [r.region_time_s * 1e3 for r in res if r.region_box]
+            full = [r.full_time_s * 1e3 for r in res]
+            rows[kind] = {"pairs": len(res), "seconds": seconds, "launches": launched,
+                          "region_ms": region, "full_ms": full,
+                          "roi_speedup": (float(np.median(full) / np.median(region))
+                                          if region else None),
+                          "region_detections": [len(r.region_detections) for r in res],
+                          "full_detections": [len(r.full_detections) for r in res],
+                          "region_boxes": [r.region_box for r in res]}
+    emit({"phase": "detect_run", "frame": [H, W], **rows, "card": smi_line()})
+
+    # the other scales, one forward each at 640²
+    for scale in YOLO_SCALES:
+        model = tyolo.YOLOv8(tyolo.YoloConfig(scale))
+        model.load_state_dict(yolo_state(scale))
+        model.to(dev).eval()
+        with torch.no_grad():
+            out = model(x)
+            shapes = [list(o.shape) for o in out]
+            if shapes != [[1, 144, 80, 80], [1, 144, 40, 40], [1, 144, 20, 20]]:
+                raise AssertionError(f"YOLOv8{scale} outputs {shapes}")
+            if not all(torch.isfinite(o).all() for o in out):
+                raise AssertionError(f"YOLOv8{scale} outputs are not finite")
+            emit({"phase": "detect_scale", "model": f"yolov8{scale}", "imgsz": YOLO_IMGSZ,
+                  "outputs": shapes, "ms": time_ms(lambda: model(x), iters=5, warm=2),
+                  "gflop": flops_of(lambda: model(x)) / 1e9,
+                  "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+                  "card": smi_line()})
+        del model, out
+        torch.cuda.empty_cache()
+    return {"nms": k9_launches}, seen[0]
+
+
+def k9_time(launches: dict, errs: dict, args) -> dict:
+    """K9's line at the YOLO post step's shapes (``args``: the inputs of its
+    first launch in run_detection): its plain loop, ``torchvision.ops.nms``
+    where it imports, the bytes bound and the chain bound of the steps this
+    input takes (one a kept box, then the step that finds nothing alive)."""
+    boxes, scores, valid, iou, _ = args
+    keep = tcomp.nms_batch(*args)
+    steps = int(keep.sum(dim=1).max()) + 1
+    b, n = scores.shape
+    try:
+        import torchvision
+        lib_fn = (lambda: torchvision.ops.nms(boxes[0][valid[0]], scores[0][valid[0]], iou))
+        library_call = "torchvision.ops.nms"
+    except ImportError:
+        lib_fn, library_call = None, "none installed"
+    entries = []
+    # a step: the argmax's compare per box, then each alive box's IoU (≈ 22
+    # float32 operations); inputs read once, the keep mask written once
+    kernel_entry(launches, errs, entries, "nms", lambda: tcomp.nms_batch(*args),
+                 lambda: tcomp.nms(*args), lib_fn, b * n * (16 + 4 + 1) + b * n,
+                 b * steps * n * 23, b, plain_iters=3, library_call=library_call, n=n, steps=steps,
+                 chain_bound_ms=steps * K9_STEP_NS * 1e-6,
+                 chain_bound_by="steps dependent steps, each reckoned at "
+                                f"{K9_STEP_NS:.1f} ns (two warp shuffle trees, three "
+                                "barriers, one IoU, 1.98 GHz)")
+    return entries[0]
 
 
 def tree_adds(win: int) -> int:
@@ -2613,11 +3123,19 @@ def main() -> None:
         emit({"phase": "phase_seconds", "name": phase, "seconds": time.perf_counter() - start,
               "card": smi_line()})
 
+    # ── the detection slice: K9, YOLOv8 at every scale, run_detection ──
+    start = time.perf_counter()
+    check_k9(errs, dev)
+    detect_launches, k9_args = drive_detect(dev)
+    emit({"phase": "phase_seconds", "name": "detect", "seconds": time.perf_counter() - start,
+          "card": smi_line()})
+
     # ── per-kernel times at each path's level-0 shapes ──
     _, prev, _ = bench_inputs(B_MAIN, 0, dev)
     kernels = kernel_times(launches, errs, dev, prev)
     kernels.append(k8_time(launches, errs, dev))
     kernels.append(deep_k1_time(deep_launches, dev))
+    kernels.append(k9_time(detect_launches, errs, k9_args))
 
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

@@ -2,8 +2,8 @@
 the exact Farnebäck with the reference's dual path, the tracking and
 prediction heads, the device simulation with the streaming pipelines, the
 FLAG=1 separate regions, the Canny gate, the serving engine, the demo
-server, the scene runners, the deep backends with their training, and the
-CLI.
+server, the scene runners, the deep backends with their training, YOLOv8
+detection on the ROI, the result visualiser, and the CLI.
 
 A package of its own beside the JAX one: it imports ``torch`` and numpy,
 never ``jax`` and nothing of ``nsof_tpu``.  Its kernels are CUDA C++ for
@@ -30,7 +30,11 @@ deep pipelines in :mod:`.pipelines.deep_flow`; training: the train steps
 in :mod:`.parallel.train`, ``run_stage`` and ``run_curriculum`` in
 :mod:`.train.curriculum`, checkpoints in :mod:`.train.trainer`, evaluation
 in :mod:`.train.evaluate`, the training data in :mod:`.data.flow_datasets`;
-the command line, ``python -m nsof_tpu_torch`` (or ``.cli``).  Its image
+YOLOv8 at every scale in :mod:`.models.yolov8` (its post step's NMS on
+kernel K9), ``TorchYoloDetector``, ``ThresholdBlobDetector`` and
+``run_detection`` in :mod:`.pipelines.detection`; ``visualize_npz`` and
+``write_video`` in :mod:`.utils.visualize`; the command line,
+``python -m nsof_tpu_torch`` (or ``.cli``).  Its image
 I/O is PNG (and PPM for training frames), by its own codecs
 (:mod:`.utils.png`, :mod:`.utils.ppm`).
 """

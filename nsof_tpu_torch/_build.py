@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 # the sources, csrc/<name>.cu, one library each
 KERNELS = (
     "crop_windows", "poly_expansion", "update_matrices_sep",
-    "fused_box_update", "update_matrices", "box_solve", "device_scan",
+    "fused_box_update", "update_matrices", "box_solve", "device_scan", "nms",
 )
 # one counter per kernel wrapper
 LAUNCH_KEYS = (
@@ -53,6 +53,7 @@ LAUNCH_KEYS = (
     "box_solve",                   # K6
     "update_matrices",             # K7, the pallas route's update
     "device_scan",                 # K8, the stream's device scan (no TPU kernel)
+    "nms",                         # K9, the YOLO post step's NMS (no TPU kernel)
 )
 
 LAUNCHES = {name: 0 for name in LAUNCH_KEYS}

@@ -15,13 +15,17 @@ Subcommands, with the JAX CLI's flags and defaults plus ``--device``
   the benchmark's submission files; Farnebäck, RAFT (``--torch-ckpt`` or the
   port's ``--ckpt``) or FlowFormer.
 - ``eventsim`` — event-driven device simulation from HDF5 or the synthetic
-  moving-box stream (eventsim/event_mem_sim.py CLI, :334-373); only with
-  ``--no-video`` (the video writer is not ported).
+  moving-box stream (eventsim/event_mem_sim.py CLI, :334-373).  Reading an
+  ``--h5`` file needs h5py; ``--synthetic`` simulates the stream it
+  generates in memory and writes ``synthetic.hdf5`` only where h5py is
+  installed.  The MP4 preview (unless ``--no-video``) needs OpenCV.
 - ``framesim`` — frame-driven simulation from a folder of frames (the
   reference's MATLAB simulation of the device over a frame sequence).
 - ``flow`` — Farnebäck flow over a folder of frames, as Middlebury images.
 - ``stream`` — frames folder → device-state scan → ROI-gated masks.
 - ``serve`` — the demo HTTP server.
+- ``visualize`` — keyframes, final-state and colorbar PNGs (and with
+  ``--mp4`` an animation, which needs OpenCV) of an ``eventsim`` result npz.
 
 Frames are read and written as PNG (:mod:`nsof_tpu_torch.utils.png`; the
 training sets' frames also as PPM); a JPEG input raises, and an output the
@@ -216,15 +220,21 @@ def cmd_eventsim(args) -> int:
         simulate_events,
     )
 
-    if not args.no_video:
-        raise NotImplementedError(
-            "the eventsim video writer (utils/visualize.py) is not ported; pass --no-video")
+    if not args.no_video:  # fail before the simulation, not after it
+        from nsof_tpu_torch.utils.visualize import require_cv2, write_video
+
+        require_cv2("the eventsim video")
     h5_path = pathlib.Path(args.h5)
     if args.synthetic:
-        x, y, p, t = generate_synthetic_events()
+        # simulated as stored (int16 x, y, int8 p), so the results do not
+        # depend on whether the HDF5 copy could be written
+        x, y, p, t = io.events_as_stored(*generate_synthetic_events())
         h5_path = pathlib.Path("synthetic.hdf5")
-        io.save_events_h5(h5_path, x, y, p, t)
-        print(f"synthetic stream saved to {h5_path}")
+        try:
+            io.save_events_h5(h5_path, x, y, p, t)
+            print(f"synthetic stream saved to {h5_path}")
+        except RuntimeError:  # raised where h5py does not import
+            print(f"h5py is not installed: the synthetic stream is not saved to {h5_path}")
     else:
         x, y, p, t, _, _ = io.load_events_h5(h5_path)
 
@@ -247,7 +257,27 @@ def cmd_eventsim(args) -> int:
             h5_path.with_suffix(".V2_b.npz"),
             out["w_final_b"].cpu(), out["resistances_b"].cpu(),
         )
+    if not args.no_video:
+        write_video(list(out["resistances"].cpu().numpy()),
+                    h5_path.with_suffix(f".V{args.version}.mp4"),
+                    fps=min(1_000_000 / args.slice_us, 60.0))
     print(f"results -> {npz}")
+    return 0
+
+
+def cmd_visualize(args) -> int:
+    from nsof_tpu_torch.utils.visualize import visualize_npz
+
+    out = visualize_npz(
+        args.npz,
+        mode=args.mode,
+        value=args.value,
+        use_log=args.log,
+        fps=args.fps,
+        key_every=args.key_every,
+        save_mp4=args.mp4,
+    )
+    print(json.dumps(out, indent=2))
     return 0
 
 
@@ -558,6 +588,15 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, default=7860)
     parsers.append(p)
 
+    p = sub.add_parser("visualize")
+    p.add_argument("npz")
+    p.add_argument("--mode", choices=["abs", "delta", "rel"], default="abs")
+    p.add_argument("--value", choices=["resistance", "state"], default="resistance")
+    p.add_argument("--log", action="store_true")
+    p.add_argument("--fps", type=float, default=None)
+    p.add_argument("--key-every", type=int, default=0)
+    p.add_argument("--mp4", action="store_true")
+
     for p in parsers:
         p.add_argument("--device", default=None, help=device_help)
 
@@ -581,6 +620,8 @@ def main(argv=None) -> int:
         return cmd_train(args)
     if args.cmd == "validate":
         return cmd_validate(args)
+    if args.cmd == "visualize":
+        return cmd_visualize(args)
     from nsof_tpu_torch.serve.app import serve
 
     serve(args.host, args.port, device=args.device)

@@ -1,7 +1,8 @@
 """Event-stream and simulation-result IO (host-side data layer).
 
 The port's copy of :mod:`nsof_tpu.device.io` (numpy; ``h5py`` is imported
-only by the HDF5 functions).
+only by the HDF5 functions, which raise ``RuntimeError`` naming it where it
+is not installed).
 
 Covers the reference's HDF5 ``/CD/events`` reader (event_mem_sim.py:69-75),
 the synthetic-stream HDF5 writer (:358-365), the compressed npz result writer
@@ -25,8 +26,7 @@ def load_events_h5(path: str | Path):
     Returns (x, y, p, t_us, height, width) with H/W inferred as max+1,
     matching ``load_events`` (event_mem_sim.py:69-75).
     """
-    import h5py
-
+    h5py = _h5py(f"reading the event stream {path}")
     with h5py.File(path, "r") as f:
         evs = f["/CD/events"]
         x, y = evs["x"][:], evs["y"][:]
@@ -38,14 +38,30 @@ def load_events_h5(path: str | Path):
 def save_events_h5(path: str | Path, x, y, p, t_us) -> None:
     """Write an event stream in the reference's synthetic-HDF5 layout
     (event_mem_sim.py:358-365)."""
-    import h5py
-
+    h5py = _h5py(f"writing the event stream {path}")
     with h5py.File(path, "w") as f:
         g = f.create_group("/CD/events")
         g.create_dataset("x", data=np.asarray(x), dtype=np.int16)
         g.create_dataset("y", data=np.asarray(y), dtype=np.int16)
         g.create_dataset("p", data=np.asarray(p), dtype=np.int8)
         g.create_dataset("t", data=np.asarray(t_us), dtype=np.int64)
+
+
+def events_as_stored(x, y, p, t_us):
+    """(x, y, p, t) as :func:`save_events_h5` then :func:`load_events_h5`
+    give them back: int16 coordinates, the polarity through int8 to int,
+    int64 times.  The CLI's synthetic stream is simulated from these when
+    no HDF5 file is written."""
+    return (np.asarray(x).astype(np.int16), np.asarray(y).astype(np.int16),
+            np.asarray(p).astype(np.int8).astype(int), np.asarray(t_us).astype(np.int64))
+
+
+def _h5py(what: str):
+    try:
+        import h5py
+    except ImportError as e:
+        raise RuntimeError(f"{what} needs h5py, which is not installed") from e
+    return h5py
 
 
 def save_sim_npz(path: str | Path, w_final, resistances) -> None:

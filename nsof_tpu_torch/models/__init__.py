@@ -1,3 +1,3 @@
-"""The deep flow models of the port: RAFT (:mod:`.raft`, weights from
-reference checkpoints through :mod:`.convert`) and FlowFormer
-(:mod:`.flowformer`)."""
+"""The models of the port: the deep flow models RAFT (:mod:`.raft`, weights
+from reference checkpoints through :mod:`.convert`) and FlowFormer
+(:mod:`.flowformer`), and the detector YOLOv8 (:mod:`.yolov8`)."""

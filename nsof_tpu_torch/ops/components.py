@@ -25,6 +25,10 @@ boxes and areas over one-hot masks; :func:`component_stats_scatter` gives
 the same for image-sized labels with ``scatter_reduce``, where one-hot
 masks would not fit.  On the 6×8 grid at B = 256 the one-hot form is the
 faster (``python -m nsof_tpu_torch.time_gate``).
+
+:func:`nms` is greedy NMS as N steps over the batch (the tracking head's);
+:func:`nms_batch` computes the same keep masks in one launch of kernel K9
+on the card (the YOLO post step's).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import math
 
 import numpy as np
 import torch
+
+from nsof_tpu_torch import _build
 
 _BIG = 2**30  # sentinel label for background / empty slots
 
@@ -260,6 +266,41 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         suppress = (iou > iou_thresh) | picked
         alive = torch.where(any_alive, alive & ~suppress, alive)
     return keep
+
+
+def _nms_cuda(boxes, scores, valid, iou_thresh, plus_one):
+    b, n = scores.shape
+    if boxes.shape != (b, n, 4) or valid.shape != (b, n):
+        raise ValueError(f"nms_batch: boxes {tuple(boxes.shape)}, scores {(b, n)} and valid "
+                         f"{tuple(valid.shape)} do not match")
+    if not (boxes.device == scores.device == valid.device):
+        raise ValueError("nms_batch: boxes, scores and valid on different devices")
+    boxes = boxes.float().contiguous()
+    if boxes.data_ptr() % 16:  # the kernel reads a box as one float4
+        boxes = boxes.clone()
+    scores = scores.float().contiguous()
+    valid = valid.bool().contiguous()
+    keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    if b == 0 or n == 0:
+        return keep
+    alive = torch.empty((b, n), dtype=torch.uint8, device=boxes.device)  # the kernel's flags
+    fn = _build.launcher("nms", 5, 3, n_float=1)
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    _build.check(fn(boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                    alive.data_ptr(), b, n, int(plus_one), iou_thresh, stream), "nms")
+    _build.LAUNCHES["nms"] += 1
+    return keep
+
+
+def nms_batch(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+              iou_thresh: float, plus_one: bool = True) -> torch.Tensor:
+    """:func:`nms` in one launch: kernel K9 (``csrc/nms.cu``, one block a
+    batch row) on a CUDA tensor, equal to :func:`nms` bit for bit; the plain
+    :func:`nms` on a CPU tensor.  ``[B, N, 4]`` boxes, ``[B, N]`` scores and
+    candidates → the ``[B, N]`` keep mask."""
+    if boxes.is_cuda:
+        return _nms_cuda(boxes, scores, valid, iou_thresh, plus_one)
+    return nms(boxes, scores, valid, iou_thresh, plus_one)
 
 
 def box_iou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:

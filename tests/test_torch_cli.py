@@ -16,11 +16,15 @@ a random texture, made with numpy from a seed:
 - ``framesim --m 40 --n 40``: ``w_final`` within 1e-6 and ``resistances``
   within 2e-5 relative (``tests/test_torch_device.py``'s bounds).
 - ``eventsim --synthetic --no-video``: ``w_final`` within 1e-6,
-  ``resistances`` within 2e-6 relative, the metadata sidecar equal.
+  ``resistances`` within 2e-6 relative, the metadata sidecar equal; with
+  h5py hidden the port's npz is equal to its run with h5py (the stream
+  simulated in memory, no HDF5 written), and ``--h5`` raises naming h5py.
+- ``eventsim`` with its MP4 (OpenCV is installed here), then ``visualize``
+  on its npz against the JAX CLI's: keyframes equal.
 
 Measured on the CPU: masks equal, flow images 99.84 % and 99.77 % equal,
 framesim ``w_final`` 8.6e-7 off, eventsim ``w_final`` equal.  Also: JPEG
-frames and ``eventsim`` without ``--no-video`` raise, ``--mesh`` other than
+frames, and ``eventsim`` without ``--no-video`` where OpenCV is hidden, raise; ``--mesh`` other than
 ``1x1`` raises, and ``train --stage chairs --small --steps 1`` runs on a
 FlyingChairs-shaped layout (``.ppm`` frames, ``.flo`` flows) with the
 chairs stage cut to 64×96 crops and batch 2, writing its checkpoint.
@@ -42,7 +46,9 @@ import dataclasses
 import gzip
 import io
 import json
+import pathlib
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -137,6 +143,54 @@ def test_eventsim_synthetic(tmp_path, monkeypatch):
         assert json.load(g) == json.load(r)
 
 
+def test_eventsim_without_h5py(tmp_path, monkeypatch):
+    """With h5py hidden, ``eventsim --synthetic --no-video`` simulates the
+    stream in memory: the same npz and metadata as with h5py, and no HDF5."""
+    monkeypatch.chdir(tmp_path)
+    assert tcli.main(["eventsim", "--synthetic", "--no-video", "--device", "cpu"]) == 0
+    assert pathlib.Path("synthetic.hdf5").exists()
+    for suffix in (".V1.npz", ".V1.json.gz", ".hdf5"):
+        shutil.move(f"synthetic{suffix}", f"with_h5py{suffix}")
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    assert tcli.main(["eventsim", "--synthetic", "--no-video", "--device", "cpu"]) == 0
+    assert not pathlib.Path("synthetic.hdf5").exists()
+    got, ref = np.load("synthetic.V1.npz"), np.load("with_h5py.V1.npz")
+    assert sorted(got.files) == sorted(ref.files)
+    for k in ref.files:
+        np.testing.assert_array_equal(got[k], ref[k])
+    with gzip.open("synthetic.V1.json.gz", "rt") as g, gzip.open("with_h5py.V1.json.gz") as r:
+        assert json.load(g) == json.load(r)
+    with pytest.raises(RuntimeError, match="h5py"):
+        tcli.main(["eventsim", "--h5", "with_h5py.hdf5", "--no-video", "--device", "cpu"])
+
+
+def test_eventsim_video_and_visualize(tmp_path, monkeypatch):
+    """``eventsim`` without ``--no-video`` writes its MP4 where OpenCV is
+    installed; ``visualize`` on its npz writes the keyframes the JAX CLI's
+    ``visualize`` writes (the manifest equal but for the npz path, the
+    pixels equal), the final-state and colorbar images."""
+    monkeypatch.chdir(tmp_path)
+    assert tcli.main(["eventsim", "--synthetic", "--slice_us", "20000", "--device", "cpu"]) == 0
+    assert pathlib.Path("synthetic.V1.mp4").stat().st_size > 0
+    (tmp_path / "jax").mkdir()
+    shutil.copy("synthetic.V1.npz", "jax/synthetic.V1.npz")
+    shutil.copy("synthetic.V1.json.gz", "jax/synthetic.V1.json.gz")
+    args = ["--mode", "delta", "--value", "state", "--key-every", "5"]
+    assert tcli.main(["visualize", "synthetic.V1.npz", *args]) == 0
+    assert jcli.main(["visualize", "jax/synthetic.V1.npz", *args]) == 0
+    got = json.loads(pathlib.Path("synthetic.V1_keyframes/manifest.json").read_text())
+    ref = json.loads(pathlib.Path("jax/synthetic.V1_keyframes/manifest.json").read_text())
+    assert got.pop("source_npz") == "synthetic.V1.npz"
+    ref.pop("source_npz")
+    assert got == ref and len(got["frames"]) == 11  # 51 frames, every 5th
+    for frame in got["frames"]:
+        g = decode_png((tmp_path / "synthetic.V1_keyframes" / frame["path"]).read_bytes())
+        r = decode_png((tmp_path / "jax/synthetic.V1_keyframes" / frame["path"]).read_bytes())
+        np.testing.assert_array_equal(g, r)
+    assert pathlib.Path("synthetic.V1.w_final.png").exists()
+    assert pathlib.Path("synthetic.V1.colorbar.png").exists()
+
+
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     """``train --stage chairs --small --steps 1`` on a FlyingChairs-shaped
@@ -170,8 +224,10 @@ def test_refusals(frames, tmp_path, monkeypatch, trained):
     with pytest.raises(ValueError, match="JPEG"):
         tcli.main(["stream", "--frames", str(tmp_path / "jpeg"), "--device", "cpu"])
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="--no-video"):
-        tcli.main(["eventsim", "--synthetic", "--device", "cpu"])
+    with monkeypatch.context() as mp:  # the MP4 preview needs OpenCV
+        mp.setitem(sys.modules, "cv2", None)
+        with pytest.raises(RuntimeError, match="OpenCV"):
+            tcli.main(["eventsim", "--synthetic", "--device", "cpu"])
     with pytest.raises(ValueError, match="1x1"):
         tcli.main(["train", "--data-root", str(tmp_path), "--mesh", "2x1", "--device", "cpu"])
     # the training slice runs: one step of the chairs stage, one checkpoint

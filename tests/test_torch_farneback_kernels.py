@@ -178,3 +178,21 @@ def test_box_solve_matches_pallas(level, winsize):
     got = np.stack([dx.numpy(), dy.numpy()], axis=1)
     assert got.shape == ref.shape == (B, 2, H, W)
     assert np.abs(got - ref).max() <= 2e-5
+
+
+def test_poly_expansion_plain_at_poly_n_10(level):
+    """K2's plain version at autodriving's poly_n 10 and poly_sigma 1.05
+    (the generic kernel instance's arithmetic, centre tap first) against
+    the JAX package: its Pallas wrapper refuses poly_n 10 (its halo holds
+    n + blur ≤ 8 rows), so it is held against ``poly_expansion_fast``, on
+    the image's extent and on a canvas 8 rows and 14 columns larger (whose
+    image part is the same).  Measured here: within 3.8e-5 on 0–255
+    images (planes up to ~70)."""
+    img = level["img0"][:16]
+    with pltpu.force_tpu_interpret_mode(), pytest.raises(AssertionError):
+        jff._poly_expansion_cm_pallas(_hwb(img), 10, 1.05, H, W)
+    ref = np.moveaxis(np.asarray(jff.poly_expansion_fast(_hwb(img), 10, 1.05)), (2, 3), (0, 1))
+    for hp, wp in ((H, W), (H + 8, W + 14)):
+        got = tff._poly_expansion_plain(torch.from_numpy(img), 10, 1.05, hp, wp).numpy()
+        assert got.shape == (16, 5, hp, wp)
+        np.testing.assert_allclose(got[..., :H, :W], ref, rtol=0, atol=1e-4)

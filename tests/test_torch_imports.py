@@ -26,7 +26,10 @@ from nsof_tpu_torch.parallel import train as ptrain
 from nsof_tpu_torch.data.scenes import SceneData
 from nsof_tpu_torch.models.flowformer import FlowFormer, FlowFormerConfig
 from nsof_tpu_torch.models.raft import RAFT, RaftConfig
+from nsof_tpu_torch.models import yolov8
+from nsof_tpu_torch.ops import components as tcomp
 from nsof_tpu_torch.pipelines import deep_flow as tdeep
+from nsof_tpu_torch.pipelines import detection as tdetect
 from nsof_tpu_torch.pipelines import prediction as tpred
 from nsof_tpu_torch.pipelines import runner as trunner
 from nsof_tpu_torch.pipelines import segmentation as tseg
@@ -86,10 +89,12 @@ def _image_library_imports(path):
 def test_no_image_library_at_module_level(path):
     """OpenCV and Pillow are not installed beside the port's GPU runtime: no
     module imports them when it is imported, and only ``load_scene`` (the
-    reference's JPEG scenes) imports ``cv2`` at all."""
+    reference's JPEG scenes) and the visualiser's MP4 writers
+    (``require_cv2``) import ``cv2`` at all."""
     found = _image_library_imports(path)
     rel = str(path.relative_to(ROOT))
-    allowed = [("_load_cv2", "cv2")] if rel == "nsof_tpu_torch/data/scenes.py" else []
+    allowed = {"nsof_tpu_torch/data/scenes.py": [("_load_cv2", "cv2")],
+               "nsof_tpu_torch/utils/visualize.py": [("require_cv2", "cv2")]}.get(rel, [])
     assert all(f in allowed for f in found), f"{rel} imports {found}"
 
 
@@ -106,6 +111,30 @@ def test_training_modules_are_scanned(rel):
     assert path in PORT_FILES
     assert not _image_library_imports(path)
     assert not {"jax", "jaxlib", "nsof_tpu", "flax", "optax", "orbax"} & set(_imported_roots(path))
+
+
+DETECTION_FILES = ["models/yolov8.py", "pipelines/detection.py", "utils/visualize.py",
+                   "utils/colormaps.py", "data/gt_tooling.py", "device/io.py", "cli.py"]
+
+
+@pytest.mark.parametrize("rel", DETECTION_FILES)
+def test_detection_modules_are_scanned(rel):
+    """The detection slice's modules are among the files scanned above and
+    import no image or plotting library (OpenCV, Pillow, matplotlib) and no
+    h5py at module level; ``utils/visualize.py`` imports ``cv2`` only inside
+    ``require_cv2``, for the MP4 writers."""
+    path = ROOT / "nsof_tpu_torch" / rel
+    assert path in PORT_FILES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            top.add(node.module.split(".")[0])
+    assert not {"cv2", "PIL", "matplotlib", "h5py", "ultralytics"} & top, top
+    allowed = [("require_cv2", "cv2")] if rel == "utils/visualize.py" else []
+    assert all(f in allowed for f in _image_library_imports(path))
 
 
 def test_import_leaves_jax_out():
@@ -126,8 +155,10 @@ def test_import_leaves_jax_out():
         "import nsof_tpu_torch.train.evaluate, nsof_tpu_torch.train.trainer\n"
         "import nsof_tpu_torch.parallel.train, nsof_tpu_torch.data.flow_datasets\n"
         "import nsof_tpu_torch.data.imgproc, nsof_tpu_torch.utils.ppm, nsof_tpu_torch.__main__\n"
+        "import nsof_tpu_torch.models.yolov8, nsof_tpu_torch.pipelines.detection\n"
+        "import nsof_tpu_torch.utils.visualize, nsof_tpu_torch.utils.colormaps\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'nsof_tpu', 'cv2', 'PIL')]\n"
+        "       if m.split('.')[0] in ('jax', 'nsof_tpu', 'cv2', 'PIL', 'matplotlib', 'h5py')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -213,7 +244,17 @@ ENTRY_POINTS = {
         *ptrain.create_train_state(0, "cpu", cfg=TINY_RAFT)[:2], **kw),
     "create_flowformer_state": lambda c, m, f, g, **kw: ptrain.create_flowformer_state(
         0, cfg=FlowFormerConfig(encoder_depth=1, decoder_depth=1), **kw),
+    "TorchYoloDetector": lambda c, m, f, g, **kw: _yolo(**kw)(g[0]),
+    "run_detection": lambda c, m, f, g, **kw: tdetect.run_detection(
+        _scene(c, m, f, g), tdetect.ThresholdBlobDetector(), **kw),
 }
+
+
+def _yolo(**kw):
+    """YOLOv8n on synthetic weights at imgsz 64, on ``kw``'s device."""
+    cfg = yolov8.YoloConfig()
+    state = yolov8.convert_yolov8(yolov8.synthetic_state_dict(cfg), cfg)
+    return tdetect.TorchYoloDetector(state, cfg, imgsz=64, **kw)
 
 
 TINY_RAFT = RaftConfig(small=True, iters=1)
@@ -309,6 +350,8 @@ def test_wrappers_raise_without_kernel_library(cuda_device, monkeypatch, tmp_pat
         lambda: tff.box_solve(lvl0, 3),
         lambda: tfs.scan_device(torch.zeros((3, 6, 8), device=dev), tfs.FrameSimConfig(),
                                 torch.zeros((6, 8), device=dev)),
+        lambda: tcomp.nms_batch(torch.zeros((2, 5, 4), device=dev), torch.ones((2, 5), device=dev),
+                                torch.ones((2, 5), dtype=torch.bool, device=dev), 0.45),
     ]
     for call in calls:
         with pytest.raises(RuntimeError):

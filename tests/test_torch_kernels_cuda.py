@@ -6,7 +6,7 @@ The cases are ``chip_smoke.py``'s, which checks them in its own run too.
 K1: source origins ≡ 0, 1 and 15 (mod 16), window widths that are not a
 multiple of 16, 1-, 2-, 4- and 12-byte elements (uint8, bf16, f32 and f32
 with three trailing channels), negative and clamped origins, B = 1.  K2:
-n 1, 5 and 7, with and without the 3-tap blur, margins (0, 0) and (8, 16),
+n 1, 5, 7 and 10 (poly_sigma 1.05), with and without the 3-tap blur, margins (0, 0) and (8, 16),
 canvases larger than the image, ragged strips and runs, B = 1.  K3: both M
 types at radius 3, 5 and 7 on a canvas with slack rows and columns; K5 at
 radius 3, 8 and its widest on a 97×131 level.  K4: both emits and both M
@@ -16,7 +16,10 @@ columns.  K7: radius 1, 3, 8 and 37 on a 97×131 level, B = 2 and 1, with
 flows at integers, ±r and beyond, ±0, tiny values and one ulp either side
 of each integer.  K8 (the device scan): the 6×8, 12×16 and a ragged 7×13
 grid, the modulation's dead zone and powf drives, at n_substeps 1000 (the
-final state, the gray maps and the per-pair states).
+final state, the gray maps and the per-pair states).  K9 (batched NMS): YOLO's
+300 candidates at B = 1 and 8, N = 1, no and every candidate, equal scores,
+the class offset, inclusive widths, zero-area boxes, NaN inputs, a row wider
+than a block and one longer than the shared alive flags (the keep masks).
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (the card's machine has no jax, which
@@ -27,8 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (K1_CASES, K2_CASES, K3_CASES, K4_CASES, K7_CASES, K8_CASES, k2_case,
-                        k3_case, k7_case, k8_case)
+from chip_smoke import (K1_CASES, K2_CASES, K3_CASES, K4_CASES, K7_CASES, K8_CASES, K9_CASES,
+                        k2_case, k3_case, k7_case, k8_case, k9_case)
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 
@@ -137,3 +140,12 @@ def test_device_scan_kernel_matches_plain(cuda_device, name):
     for got, ref in zip(kernel(), plain()):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K9_CASES))
+def test_nms_kernel_matches_plain(cuda_device, name):
+    kernel, plain = k9_case(name, cuda_device)
+    got, ref = kernel(), plain()
+    assert got.dtype == torch.bool and got.shape == ref.shape
+    assert torch.equal(got, ref)
