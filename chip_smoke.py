@@ -135,6 +135,25 @@ just before the run) and ``ThresholdBlobDetector``: the YOLO time columns,
 the CSV's 10 YOLO columns, every region detection inside its region box;
 then YOLOv8 s, m, l and x, one forward each at 640².
 
+Then the ground-truth tooling (no kernel: the counts stay 0), on the runner
+scene's 480×640 RGB frame and seeded synthetic weights (no published
+weights are in the repo):
+
+- ``gt_sam``: SAM vit_b at full width (1024², 12 blocks) behind
+  ``SamPredictor``: ``set_image`` and ``predict`` with 1 and 4 boxes, each
+  one's CUDA-event median, launches, host syncs, GFLOP and peak memory;
+  ``gt_sam_parity``: the card against the CPU port at vit_b's widths with
+  the depth cut to GT_SAM_CUT_DEPTH, TF32 off and at the defaults, within
+  GT_SAM_F32_REL and GT_SAM_TF32_REL; ``gt_sam_encoder``: vit_l and vit_h,
+  one encoder forward each at 1024², depth uncut;
+- ``gt_owlvit``: OWL-ViT at base-patch32's widths, its input and its
+  forward with 1 and 4 text queries (a deterministic toy tokenizer), a
+  proposer call; ``gt_owlvit_parity``: the card against the CPU port at
+  TINY_OWLVIT and base-patch32, within GT_OWL_F32_REL and GT_OWL_TF32_REL;
+- ``gt_chain``: the OWL-ViT → SAM chain through ``generate_gt_masks`` over
+  GT_CHAIN_FRAMES PNG frames (ms a frame, instances a frame), then
+  ``/api/segment`` with the chain injected, ``box_threshold`` unset and set.
+
 Last, each kernel is timed at its path's level-0 shapes beside its bound
 and its plain version (K7 also at radius 8; K8 at the stream's shapes,
 its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound; K1 also at the
@@ -179,6 +198,9 @@ from nsof_tpu_torch.data.scenes import SceneData
 from nsof_tpu_torch.device import frame_sim as tfs
 from nsof_tpu_torch.device.model import DEFAULT_PARAMS
 from nsof_tpu_torch.device.synthetic import generate_synthetic_events
+from nsof_tpu_torch.data import gt_tooling as tgt
+from nsof_tpu_torch.models import owlvit as towl
+from nsof_tpu_torch.models import sam as tsam
 from nsof_tpu_torch.models import yolov8 as tyolo
 from nsof_tpu_torch.models.flowformer import FlowFormer, get_experiment
 from nsof_tpu_torch.models.raft import RAFT, RaftConfig
@@ -391,6 +413,32 @@ YOLO_BOX_TOL, YOLO_SCORE_TOL = 1e-3, 2e-5
 # 640², all scores within 2.5e-2 of 1 and the top 300 ulps apart; 14 leaves
 # 275 candidates there, scored 0.25–0.85
 YOLO_CLS_SHIFT = 14
+# the ground-truth tooling (gt_sam, gt_owlvit, gt_chain): SAM vit_b at full
+# width (1024², 12 blocks) on synthetic_sam_state_dict's seed-0 weights, the
+# mask head's last upscaling convolution and hypernetwork outputs ×GT_SAM_HEAD
+# (tests/test_torch_sam.py's mixed_state: the seeded weights alone give
+# logits of ≈ 3e-3 of one sign); its predictor on the runner scene's 480×640
+# RGB frame with the first 1 and all 4 of GT_BOXES; then vit_l and vit_h
+# encoders at 1024², depth uncut, their weights drawn on the card
+GT_SAM_HEAD = 20
+GT_BOXES = [[230, 130, 420, 300], [40, 40, 200, 200], [300, 250, 630, 470], [0, 0, 640, 480]]
+# OWL-ViT at google/owlvit-base-patch32's widths (towl.BASE_PATCH32) on
+# synthetic_owlvit_state_dict's seed-0 weights, the toy tokenizer, GT_QUERIES
+GT_QUERIES = ["moving object", "bright square", "textured background", "a dark region"]
+# the card against the CPU port on the same weights and inputs: max |Δ| over
+# the largest magnitude, of SAM's low-res logits, IoU and frame logits (vit_b's
+# widths, depth cut to GT_SAM_CUT_DEPTH: blocks 0 and 1 windowed, 2 global)
+# and of OWL-ViT's valid logits and boxes (TINY_OWLVIT and base-patch32),
+# with cuDNN's TF32 off (float32) and at PyTorch's defaults (TF32
+# convolutions: the patch embeddings, SAM's neck, mask downscaling and
+# upscaling).  Read on an H100 80GB HBM3 at 700 W: SAM 1.4e-6 and 8.3e-4; OWL-ViT
+# 7.7e-6 and 5.2e-4 (base-patch32; TINY 7.6e-7 and 3.7e-4).  Each limit is
+# ≈ 4× the largest reading
+GT_SAM_CUT_DEPTH = 3
+GT_SAM_F32_REL, GT_SAM_TF32_REL = 6e-6, 3.5e-3
+GT_OWL_F32_REL, GT_OWL_TF32_REL = 3e-5, 2e-3
+# the chain over the runner scene's first GT_CHAIN_FRAMES frames as PNG
+GT_CHAIN_FRAMES = 7
 # K9 against its plain loop, IoU threshold 0.45: name → (B, N, inputs,
 # plus_one).  YOLO's 300 candidates at B = 1 and 8, N = 1, no and every
 # candidate, equal scores, boxes with the class offset (up to 79 · 7680
@@ -1482,7 +1530,8 @@ def drive_serve(dev) -> None:
     preset grasp, each launching K8 once and K1–K4 as the stream does, its
     box, any_active, region_pct and mask equal to the direct stream_masks
     and seg_step; SERVE_FLOWS POST /api/segment with a PNG holding one
-    bright square; a JPEG payload answered with 400.  Prints each endpoint's ms per request."""
+    bright square (no local OWL-ViT or SAM weights: the brightness
+    fallback); a JPEG payload answered with 400.  Prints each endpoint's ms per request."""
     srv = make_server(port=0)
     port = srv.server_address[1]
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -1529,7 +1578,7 @@ def drive_serve(dev) -> None:
             img[100:196, 200 + 10 * i : 296 + 10 * i] = 255
             code, raw, dt = http(port, "/api/segment", {"image": b64png(img), "prompt": "bright"})
             seg = json.loads(raw)
-            if code != 200 or seg["backend"] != "BrightnessSegmenter" or seg["n_instances"] != 1:
+            if code != 200 or seg["backend"] != "brightness-fallback" or seg["n_instances"] != 1:
                 raise AssertionError(f"/api/segment gave {code} {str(seg)[:300]}")
             ms["segment"].append(dt)
         jpeg = base64.b64encode(b"\xff\xd8\xff\xe0" + bytes(64)).decode()
@@ -2728,6 +2777,302 @@ def drive_detect(dev) -> tuple[dict, dict]:
     return {"nms": k9_launches}, seen[0]
 
 
+def gt_sam(cfg, dev=None) -> "tsam.Sam":
+    """SAM at ``cfg`` on synthetic_sam_state_dict's seed-0 weights, the mask
+    head scaled by GT_SAM_HEAD (see the constant), on ``dev`` or the CPU."""
+    state = tsam.synthetic_sam_state_dict(cfg, seed=0)
+    state["mask_decoder.output_upscaling.3.weight"] *= GT_SAM_HEAD
+    for i in range(cfg.num_mask_tokens):
+        state[f"mask_decoder.output_hypernetworks_mlps.{i}.layers.2.weight"] *= GT_SAM_HEAD
+    model = tsam.Sam(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model.to(dev or "cpu").eval()
+
+
+def gt_frame(dev) -> np.ndarray:
+    """The runner scene's second frame as 480×640 uint8 RGB."""
+    scene, _, _ = runner_scene(dev)
+    return np.ascontiguousarray(scene.frames_bgr[1][..., ::-1])
+
+
+def gap(got, want) -> float:
+    """max |got − want| over want's largest magnitude (numpy or tensors)."""
+    got = got.detach().cpu().numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = want.detach().cpu().numpy() if torch.is_tensor(want) else np.asarray(want)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"shape {got.shape} against {want.shape}, or not finite")
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def gt_measure(call, name: str) -> dict:
+    """One entry point's numbers: CUDA-event median ms after warm-up (the
+    host's work inside included: the events wait on it), the host clock's,
+    the device launches and busy ms (a trace), the host syncs, GFLOP
+    (FlopCounterMode: matrix products and convolutions) and peak memory."""
+    samples, host = [], []
+    for i in range(TIME_WARM + TIME_N):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        call()
+        stop.record()
+        torch.cuda.synchronize()
+        if i >= TIME_WARM:
+            samples.append(start.elapsed_time(stop))
+            host.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(samples))
+    trace = device_trace(call, ms, 1, [], path=name)
+    syncs = host_syncs(call)
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    return {"ms": ms, "host_ms": float(np.median(host)),
+            "device_launches": trace.get("device_launches"), "busy_ms": trace["busy_ms"],
+            "idle_share": trace.get("idle_share_of_timed_batch"),
+            "top": trace.get("top", [])[:6], "host_syncs": sum(syncs.values()),
+            "sync_lines": syncs, "gflop": flops_of(call) / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def card_encoder(cfg, dev, seed: int = 0):
+    """SAM's image encoder at ``cfg`` built on the card, every tensor drawn
+    there from a seeded ``torch.Generator`` (N(0, 0.05), as the synthetic
+    state dicts draw): numpy's draw of vit_l's 300 M or vit_h's 636 M values
+    would cost the script tens of seconds."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        enc = tsam.ImageEncoderViT(cfg)
+    with torch.no_grad():
+        for t in enc.state_dict().values():
+            t.normal_(0.0, 0.05, generator=gen)
+    return enc.eval()
+
+
+def drive_gt_sam(dev, frame: np.ndarray):
+    """SAM at full width on the card.
+
+    - vit_b (synthetic weights, GT_SAM_HEAD) behind ``SamPredictor`` on the
+      480×640 frame: ``set_image`` (768×1024 resize on the host, 1024²
+      encoder) and ``predict`` with 1 and 4 boxes (``postprocess`` 256² →
+      1024² → crop 768×1024 → 480×640); each one's numbers
+      (:func:`gt_measure`), its outputs' shapes, finite values, the mask's
+      share;
+    - the card against the CPU port at vit_b's widths, depth
+      GT_SAM_CUT_DEPTH, TF32 off and at the defaults;
+    - vit_l and vit_h: one encoder forward each at 1024², depth uncut.
+
+    Returns the vit_b predictor's model."""
+    cfg = tsam.SAM_CONFIGS["vit_b"]
+    model = gt_sam(cfg, dev)
+    pred = tsam.SamPredictor(model, device=dev)
+    out = {"set_image": gt_measure(lambda: pred.set_image(frame), "gt_sam_set_image")}
+    for nb in (1, 4):
+        boxes = np.asarray(GT_BOXES[:nb], np.float32)
+        masks, iou, low = pred.predict(boxes=boxes)
+        side = 4 * cfg.embedding_size
+        if (masks.shape != (nb, 1, H, W) or low.shape != (nb, 1, side, side)
+                or not (np.isfinite(iou).all() and np.isfinite(low).all())):
+            raise AssertionError(f"SAM predict: {masks.shape}, {low.shape}, finite iou/logits")
+        out[f"predict_{nb}"] = {**gt_measure(lambda: pred.predict(boxes=boxes), f"gt_sam_{nb}"),
+                                "mask_share": float(masks.mean()), "iou": iou[:, 0].tolist()}
+    emit({"phase": "gt_sam", "model": "vit_b", "frame": [H, W], "input": [1024, 1024],
+          "embedding": list(pred._embedding.shape), "weights": "numpy seed 0, head ×20",
+          **out, "card": smi_line()})
+
+    cut = dataclasses.replace(cfg, depth=GT_SAM_CUT_DEPTH, global_attn_indexes=(2,))
+    boxes = np.asarray(GT_BOXES, np.float32)
+    cpu = tsam.SamPredictor(gt_sam(cut), device="cpu")
+    start = time.perf_counter()
+    cpu.set_image(frame)
+    want = cpu.predict(boxes=boxes, return_logits=True)
+    cpu_s = time.perf_counter() - start
+    card = tsam.SamPredictor(gt_sam(cut, dev), device=dev)
+    gaps = {}
+    for setting, ctx in (("tf32_off", f32_convs), ("defaults", contextlib.nullcontext)):
+        with ctx():
+            card.set_image(frame)
+            got = card.predict(boxes=boxes, return_logits=True)
+        gaps[setting] = {k: gap(g, w) for k, g, w in zip(("logits", "iou", "low_res"),
+                                                           got, want)}
+    worst = {k: max(v.values()) for k, v in gaps.items()}
+    if not (worst["tf32_off"] <= GT_SAM_F32_REL and worst["defaults"] <= GT_SAM_TF32_REL):
+        raise AssertionError(f"SAM card vs CPU: {gaps}")
+    emit({"phase": "gt_sam_parity", "widths": "vit_b", "depth": GT_SAM_CUT_DEPTH,
+          "boxes": len(boxes), "gaps": gaps,
+          "tolerances": {"tf32_off": GT_SAM_F32_REL, "defaults": GT_SAM_TF32_REL},
+          "cpu_seconds": cpu_s, "card": smi_line()})
+    del cpu, card
+
+    x = pred.preprocess(frame)
+    for name in ("vit_l", "vit_h"):
+        enc = card_encoder(tsam.SAM_CONFIGS[name], dev)
+        with torch.inference_mode():
+            emb = enc(x)
+            if emb.shape != (1, 256) + (cfg.embedding_size,) * 2 or not torch.isfinite(emb).all():
+                raise AssertionError(f"{name} encoder: {tuple(emb.shape)} or not finite")
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            samples = []
+            for i in range(4):
+                start.record()
+                enc(x)
+                stop.record()
+                torch.cuda.synchronize()
+                if i:
+                    samples.append(start.elapsed_time(stop))
+            gflop = flops_of(lambda: enc(x)) / 1e9
+            trace = device_trace(lambda: enc(x), float(np.median(samples)), 1, [],
+                                 path=f"gt_{name}")
+            torch.cuda.reset_peak_memory_stats()
+            enc(x)
+            torch.cuda.synchronize()
+        emit({"phase": "gt_sam_encoder", "model": name, "input": [1024, 1024],
+              "depth": len(enc.blocks), "weights": "drawn on the card, torch.Generator seed 0",
+              "ms": float(np.median(samples)), "samples": samples, "gflop": gflop,
+              "device_launches": trace.get("device_launches"), "busy_ms": trace["busy_ms"],
+              "params_m": sum(t.numel() for t in enc.parameters()) / 1e6,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi_line()})
+        del enc, emb
+        torch.cuda.empty_cache()
+    return model
+
+
+def owl_ids(tok, n: int) -> torch.Tensor:
+    return torch.from_numpy(np.stack([tok(q) for q in GT_QUERIES[:n]]))[None]
+
+
+def drive_gt_owlvit(dev, frame: np.ndarray):
+    """OWL-ViT at base-patch32's widths on the card: the proposer's input
+    (768² cubic resize on the host, upload, CLIP normalisation) and the
+    forward with 1 and 4 text queries, each one's numbers
+    (:func:`gt_measure`); a proposer call; then the card against the CPU
+    port at TINY_OWLVIT and base-patch32, TF32 off and at the defaults.
+    Returns the base-patch32 proposer."""
+    cfg = towl.BASE_PATCH32
+    state = towl.synthetic_owlvit_state_dict(cfg, seed=0)
+    tok = tgt.toy_tokenizer(cfg.vocab_size, cfg.max_text_len)
+    prop = tgt.TorchOwlVitBoxProposer.from_params(cfg, state, tok, device=dev)
+    out = {"pixels": gt_measure(lambda: prop.pixels(frame), "gt_owl_pixels")}
+    px = prop.pixels(frame)
+    for n in (1, 4):
+        ids = owl_ids(tok, n).to(dev)
+
+        def forward():
+            with torch.inference_mode():
+                return prop.model(px, ids)
+
+        res = forward()
+        if (res["logits"].shape != (1, cfg.grid ** 2, n) or res["pred_boxes"].shape !=
+                (1, cfg.grid ** 2, 4) or not torch.isfinite(res["logits"]).all()):
+            raise AssertionError(f"OWL-ViT forward: {tuple(res['logits'].shape)} or not finite")
+        out[f"forward_{n}"] = gt_measure(forward, f"gt_owl_{n}")
+    scores = torch.sigmoid(res["logits"][0, :, 0]).sort(descending=True).values.cpu()
+    prop.score_threshold = float(scores[3:5].mean())  # four boxes for query 0 here
+    boxes = prop(frame, GT_QUERIES[0])
+    out["proposer_call"] = {"ms": gt_measure(lambda: prop(frame, GT_QUERIES[0]),
+                                             "gt_owl_call")["host_ms"],
+                            "boxes": len(boxes), "threshold": prop.score_threshold}
+    emit({"phase": "gt_owlvit", "model": "owlvit-base-patch32 widths", "frame": [H, W],
+          "input": [cfg.image_size, cfg.image_size], "patches": cfg.grid ** 2,
+          "weights": "numpy seed 0", "tokenizer": "toy (CRC-32 of each word)", **out,
+          "card": smi_line()})
+
+    gaps = {}
+    for name, c in (("tiny", towl.TINY_OWLVIT), ("base_patch32", cfg)):
+        st = state if c is cfg else towl.synthetic_owlvit_state_dict(c, seed=0)
+        ids = owl_ids(tgt.toy_tokenizer(c.vocab_size, c.max_text_len), 4)
+        cpu_prop = tgt.TorchOwlVitBoxProposer.from_params(c, st, tok, device="cpu")
+        pixels = cpu_prop.pixels(frame)
+        with torch.inference_mode():
+            want = cpu_prop.model(pixels, ids)
+        card = towl.load_owlvit_state(st, c).to(dev).eval()
+        gaps[name] = {}
+        for setting, ctx in (("tf32_off", f32_convs), ("defaults", contextlib.nullcontext)):
+            with ctx(), torch.inference_mode():
+                got = card(pixels.to(dev), ids.to(dev))
+            gaps[name][setting] = {k: gap(got[k], want[k]) for k in ("logits", "pred_boxes")}
+    worst = {s: max(max(g[s].values()) for g in gaps.values()) for s in ("tf32_off", "defaults")}
+    if not (worst["tf32_off"] <= GT_OWL_F32_REL and worst["defaults"] <= GT_OWL_TF32_REL):
+        raise AssertionError(f"OWL-ViT card vs CPU: {gaps}")
+    emit({"phase": "gt_owlvit_parity", "queries": 4, "gaps": gaps,
+          "tolerances": {"tf32_off": GT_OWL_F32_REL, "defaults": GT_OWL_TF32_REL},
+          "card": smi_line()})
+    return prop
+
+
+def drive_gt_chain(dev, sam_model, prop) -> None:
+    """The OWL-ViT → SAM chain (``lang_sam_segmenter``'s pieces on the
+    synthetic weights) on the card: ``generate_gt_masks`` over the runner
+    scene's first GT_CHAIN_FRAMES frames written as 640×480 PNG, each mask
+    the union of the chain's masks for its frame; then ``/api/segment`` on
+    the demo server with the chain injected, with ``box_threshold`` unset
+    and set, each answer equal in instances to the chain called directly at
+    that threshold, the shared proposer's threshold left as it was.  No
+    kernel of the port is launched."""
+    chain = tgt.TorchSamSegmenter(sam_model, prop, device=dev)
+    scene, _, _ = runner_scene(dev)
+    prompt = GT_QUERIES[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        names = [f"{i:04d}.png" for i in range(GT_CHAIN_FRAMES)]
+        rgb = [np.ascontiguousarray(f[..., ::-1]) for f in scene.frames_bgr[:GT_CHAIN_FRAMES]]
+        for name, img in zip(names, rgb):
+            (root / name).write_bytes(encode_png(img))
+        (root / "imgs.txt").write_text("\n".join(names))
+        chain(rgb[0], prompt)  # warm-up
+        start = time.perf_counter()
+        launches, res = launched_by(lambda: tgt.generate_gt_masks(
+            root, root / "imgs.txt", root / "gtmask", prompt, chain))
+        seconds = time.perf_counter() - start
+        if launches:
+            raise AssertionError(f"generate_gt_masks launched {launches}")
+        for r, img in zip(res, rgb):
+            mask = decode_png(pathlib.Path(r.mask_path).read_bytes(), gray=True)
+            if mask.shape != (H, W) or not set(np.unique(mask)) <= {0, 255}:
+                raise AssertionError(f"{r.frame}: mask {mask.shape} {np.unique(mask)}")
+        want = np.zeros((H, W), np.uint8)
+        for m in chain(rgb[0], prompt):
+            want |= m.astype(np.uint8)
+        first = decode_png(pathlib.Path(res[0].mask_path).read_bytes(), gray=True)
+        if not np.array_equal(first, want * 255):
+            raise AssertionError("the first frame's mask differs from the chain's union")
+
+    with torch.inference_mode():
+        logits = prop.model(prop.pixels(rgb[0]), owl_ids(prop.tokenizer, 1).to(dev))["logits"]
+    scores = torch.sigmoid(logits[0, :, 0]).sort(descending=True).values.cpu()
+    srv = make_server(port=0, segmenter=chain, device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    served = {}
+    try:
+        base = prop.score_threshold
+        for thr in (None, float(scores[7:9].mean())):  # eight boxes when set
+            body = {"image": b64png(rgb[0]), "prompt": prompt}
+            if thr is not None:
+                body["box_threshold"] = thr
+            code, raw, ms = http(srv.server_address[1], "/api/segment", body)
+            seg = json.loads(raw)
+            prop.score_threshold = base if thr is None else thr
+            n = len(chain(rgb[0], prompt))
+            prop.score_threshold = base
+            if code != 200 or seg["backend"] != "TorchSamSegmenter" or seg["n_instances"] != n:
+                raise AssertionError(f"/api/segment box_threshold={thr}: {code} "
+                                     f"{str(seg)[:300]}, the chain gives {n}")
+            served["unset" if thr is None else "set"] = {
+                "box_threshold": thr, "n_instances": n, "ms": ms}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    emit({"phase": "gt_chain", "frames": GT_CHAIN_FRAMES, "frame": [H, W], "prompt": prompt,
+          "threshold": prop.score_threshold, "seconds": seconds,
+          "ms_per_frame": seconds * 1e3 / GT_CHAIN_FRAMES,
+          "instances": [r.n_instances for r in res], "api_segment": served,
+          "card": smi_line()})
+
+
 def k9_time(launches: dict, errs: dict, args) -> dict:
     """K9's line at the YOLO post step's shapes (``args``: the inputs of its
     first launch in run_detection): its plain loop, ``torchvision.ops.nms``
@@ -3128,6 +3473,17 @@ def main() -> None:
     check_k9(errs, dev)
     detect_launches, k9_args = drive_detect(dev)
     emit({"phase": "phase_seconds", "name": "detect", "seconds": time.perf_counter() - start,
+          "card": smi_line()})
+
+    # ── the ground-truth tooling: SAM, OWL-ViT, the chain and /api/segment ──
+    start = time.perf_counter()
+    frame = gt_frame(dev)
+    sam_model = drive_gt_sam(dev, frame)
+    prop = drive_gt_owlvit(dev, frame)
+    drive_gt_chain(dev, sam_model, prop)
+    del sam_model, prop
+    torch.cuda.empty_cache()
+    emit({"phase": "phase_seconds", "name": "gt", "seconds": time.perf_counter() - start,
           "card": smi_line()})
 
     # ── per-kernel times at each path's level-0 shapes ──

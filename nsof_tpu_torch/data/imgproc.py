@@ -9,6 +9,15 @@ OpenCV's own arithmetic:
   centres, the edge pixel repeated, no antialiasing when shrinking.  uint8
   images take OpenCV's 11-bit fixed-point weights and its vectorised row
   blend; float32 images its float weights.
+- :func:`resize_cubic` is ``cv2.resize(uint8, INTER_CUBIC)`` of gray or RGB
+  as OpenCV 5 computes it: Keys' cubic with a = −0.75, each output's four
+  tap distances in float32 from its first (``t0 = frac + 1``, ``t0 − 1``,
+  ``2 − t0``, ``3 − t0``) and their weights in double rounded to float32,
+  the edge pixel repeated; float32 sums of products, as its code contracts
+  them into fused multiply-adds: along x in pairs (gray) or in order, each
+  product added in one rounding (RGB), along y two fused pairs added;
+  rounded to nearest even and saturated.  OpenCV 4's 11-bit fixed point
+  differs from it on ≈ 5 % of values.
 - :func:`rgb_to_hsv_u8` is ``cv2.cvtColor(..., COLOR_RGB2HSV)`` on uint8
   (H in [0, 180)), OpenCV's 12-bit integer tables; :func:`hsv_to_rgb_u8` is
   ``COLOR_HSV2RGB``, OpenCV's float sector formula, truncated where its
@@ -85,6 +94,54 @@ def resize_linear(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
     by1 = fy.reshape(col)
     by0 = np.float32(1) - by1
     return rows[y0] * by0 + rows[y1] * by1
+
+
+def _cubic_taps(n_in: int, n_out: int):
+    """OpenCV 5's per-output source indices (the edge repeated) and float32
+    weights of the four cubic taps along one axis."""
+    a = -0.75
+    f = (np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    s = np.floor(f).astype(np.int64)
+    t0 = (f - s).astype(np.float32) + np.float32(1)
+    t = [t0, t0 - np.float32(1), np.float32(2) - t0, np.float32(3) - t0]
+    near = lambda x: ((a + 2) * x - (a + 3)) * x * x + 1  # noqa: E731
+    far = lambda x: ((a * x - 5 * a) * x + 8 * a) * x - 4 * a  # noqa: E731
+    w = np.stack([far(t[0].astype(np.float64)), near(t[1].astype(np.float64)),
+                  near(t[2].astype(np.float64)), far(t[3].astype(np.float64))], axis=-1)
+    idx = np.clip(s[:, None] + np.arange(-1, 3)[None, :], 0, n_in - 1)
+    return idx, w.astype(np.float32)
+
+
+def _fma(a, b, c):
+    """float32 ``a · b + c`` rounded once (the product of two float32 values
+    is exact in float64)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def resize_cubic(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
+    """``cv2.resize(img, (nw, nh), interpolation=cv2.INTER_CUBIC)`` for
+    uint8 ``[H, W]`` / ``[H, W, 3]`` (OpenCV 5's arithmetic: see the module
+    docstring, and ``tests/test_torch_gt_tooling.py`` for how close)."""
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"resize_cubic takes uint8 [H, W] or [H, W, 3], got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    xi, xw = _cubic_taps(w, nw)
+    yi, yw = _cubic_taps(h, nh)
+    extra = (1,) * (img.ndim - 2)
+    src = img.astype(np.float32)
+    v = [src[:, xi[:, k]] for k in range(4)]
+    a = [xw[:, k].reshape((1, nw) + extra) for k in range(4)]
+    if img.ndim == 2:  # the taps in pairs
+        rows = (v[0] * a[0] + v[1] * a[1]) + (v[2] * a[2] + v[3] * a[3])
+    else:  # in order, each product added in one rounding
+        rows = v[0] * a[0]
+        for k in range(1, 4):
+            rows = _fma(v[k], a[k], rows)
+    r = [rows[yi[:, k]] for k in range(4)]
+    b = [yw[:, k].reshape((nh, 1) + extra) for k in range(4)]
+    out = _fma(r[0], b[0], r[1] * b[1]) + _fma(r[2], b[2], r[3] * b[3])
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def _hsv_tables():

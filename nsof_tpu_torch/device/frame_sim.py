@@ -16,10 +16,7 @@ over sub-steps into one program.  On a CPU tensor it is the plain version,
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import functools
-import math
 from typing import Optional
 
 import torch
@@ -28,6 +25,7 @@ from nsof_tpu_torch import _build
 from nsof_tpu_torch.device.model import (DEFAULT_PARAMS, DeviceParams, _rdiv,
                                          conductance_to_gray, difference_voltage,
                                          modulate_voltage, resistance_exp, update_state)
+from nsof_tpu_torch.ops.resize import full_f32_matmul, weight_mat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,47 +42,6 @@ class FrameSimConfig:
     dt: float = 5e-4
     n_substeps: int = 1000
     params: DeviceParams = DEFAULT_PARAMS
-
-
-def _lanczos3(x: torch.Tensor) -> torch.Tensor:
-    """JAX's ``_fill_lanczos_kernel(3., x)`` (jax/_src/image/scale.py)."""
-    radius = 3.0
-    y = radius * torch.sin(math.pi * x) * torch.sin(math.pi * x / radius)
-    den = torch.where(x != 0, math.pi**2 * (x * x), 1.0)
-    out = torch.where(x > 1e-3, y / den, 1.0)
-    return torch.where(x > radius, 0.0, out)
-
-
-@functools.lru_cache(maxsize=32)
-def _weight_mat(in_size: int, out_size: int, device: str) -> torch.Tensor:
-    """``[in_size, out_size]`` float32 Lanczos-3 weights of an antialiased
-    resize, JAX's ``compute_weight_mat`` (jax/_src/image/scale.py:54-84)
-    with scale out/in and no translation: the same sample positions,
-    normalisation and zeroing of samples outside the input.  Built once per
-    size and device (the upload is the only host synchronisation)."""
-    inv_scale = 1.0 / (out_size / in_size)
-    kernel_scale = max(inv_scale, 1.0)
-    f32 = torch.float32
-    sample_f = (torch.arange(out_size, dtype=f32) + 0.5) * inv_scale - 0.0 - 0.5
-    x = torch.abs(sample_f[None, :] - torch.arange(in_size, dtype=f32)[:, None])
-    weights = _lanczos3(x / torch.tensor(kernel_scale, dtype=f32))
-    total = weights.sum(dim=0, keepdim=True)
-    weights = torch.where(
-        torch.abs(total) > 1000.0 * float(torch.finfo(f32).eps),
-        weights / torch.where(total != 0, total, 1.0), 0.0)
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], weights, 0.0).to(device)
-
-
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """Float32 matrix products in full float32 (no TF32) inside."""
-    saved = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(saved)
 
 
 def compress_frames(frames, m: int, n: int, region_ul: Optional[tuple[int, int]] = None,
@@ -108,11 +65,11 @@ def compress_frames(frames, m: int, n: int, region_ul: Optional[tuple[int, int]]
     out = frames.to(torch.float32)
     _, h, w = out.shape
     gh, gw = h // n, w // m
-    with _full_f32_matmul():
+    with full_f32_matmul():  # sample positions rounded twice: the output kept bit for bit
         if gh != h:
-            out = torch.matmul(_weight_mat(h, gh, str(dev)).T, out)
+            out = torch.matmul(weight_mat(h, gh, "lanczos3", str(dev), False).T, out)
         if gw != w:
-            out = torch.matmul(out, _weight_mat(w, gw, str(dev)))
+            out = torch.matmul(out, weight_mat(w, gw, "lanczos3", str(dev), False))
     return out
 
 

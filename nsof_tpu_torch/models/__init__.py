@@ -1,3 +1,4 @@
 """The models of the port: the deep flow models RAFT (:mod:`.raft`, weights
 from reference checkpoints through :mod:`.convert`) and FlowFormer
-(:mod:`.flowformer`), and the detector YOLOv8 (:mod:`.yolov8`)."""
+(:mod:`.flowformer`), the detector YOLOv8 (:mod:`.yolov8`), and the
+ground-truth tooling's SAM (:mod:`.sam`) and OWL-ViT (:mod:`.owlvit`)."""

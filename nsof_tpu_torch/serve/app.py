@@ -5,9 +5,14 @@ JSON fields and page.
 
 * **Text-prompted segmentation** — image + text prompt (+ box/text
   thresholds, app.py:21-26) → instance masks drawn over the image.  Uses
-  the injected segmenter, else the weightless
+  the injected segmenter, else the OWL-ViT → SAM chain
+  (:func:`~nsof_tpu_torch.data.gt_tooling.lang_sam_segmenter`, on the
+  service's device, from local weights), else — only where a package or the
+  weights are missing — the weightless
   :class:`~nsof_tpu_torch.data.gt_tooling.BrightnessSegmenter`; the response
-  reports which backend served it.
+  reports which backend served it.  ``box_threshold`` sets the proposer's
+  score threshold on a copy for the request; one request segments at a time
+  (a segmenter holds its image embedding between its two stages).
 * **Optical-flow pipelines** (beyond the reference's app) — a frame pair
   → device-state scan (kernel K8) → ROI-gated Farnebäck (K1–K4) →
   Middlebury flow image + motion mask + ROI box, i.e. the headline pipeline
@@ -32,6 +37,7 @@ Endpoints:
 from __future__ import annotations
 
 import base64
+import copy
 import dataclasses
 import json
 import threading
@@ -41,7 +47,7 @@ import numpy as np
 import torch
 
 from nsof_tpu_torch import _build
-from nsof_tpu_torch.data.gt_tooling import BrightnessSegmenter
+from nsof_tpu_torch.data import gt_tooling as gt
 from nsof_tpu_torch.utils.png import decode_png, encode_png
 
 _PALETTE = [
@@ -114,22 +120,43 @@ class DemoService:
         self._segmenter = segmenter
         self._segment_backend = None
         self._lock = threading.Lock()
+        self._segment_lock = threading.Lock()
         self._flow_cache: dict[tuple, object] = {}
 
     # -- text-prompted segmentation ------------------------------------
+    def _build_segmenter(self):
+        if self._segmenter is not None:
+            self._segment_backend = type(self._segmenter).__name__
+            return
+        try:
+            self._segmenter = gt.lang_sam_segmenter(device=self.device)
+            self._segment_backend = "owlvit+sam"
+        except (ImportError, OSError):  # no transformers, or no local weights
+            self._segmenter = gt.BrightnessSegmenter()
+            self._segment_backend = "brightness-fallback"
+
     def segmenter(self):
         with self._lock:
-            if self._segmenter is None:
-                self._segmenter = BrightnessSegmenter()
             if self._segment_backend is None:
-                self._segment_backend = type(self._segmenter).__name__
+                self._build_segmenter()
             return self._segmenter, self._segment_backend
 
     def segment(self, req: dict) -> dict:
         image = _b64_to_image(req["image"])
         prompt = str(req.get("prompt", ""))
         seg, backend = self.segmenter()
-        masks = seg(image, prompt)
+        # box_threshold is the proposer's score threshold (app.py:22; OWL-ViT
+        # has one score, so text_threshold is accepted and not used).  The
+        # shared proposer is never changed: the request gets shallow copies
+        # carrying its threshold, the model shared by reference.
+        proposer = getattr(seg, "box_proposer", None)
+        if ("box_threshold" in req and hasattr(proposer, "score_threshold")
+                and float(req["box_threshold"]) != proposer.score_threshold):
+            seg = copy.copy(seg)
+            seg.box_proposer = copy.copy(proposer)
+            seg.box_proposer.score_threshold = float(req["box_threshold"])
+        with self._segment_lock:
+            masks = seg(image, prompt)
         boxes, labels = [], []
         for m in masks:
             ys, xs = np.nonzero(m)

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither ``jax`` nor ``nsof_tpu``, nor
-OpenCV or Pillow at module level (neither is installed beside its GPU
-runtime; only ``data/scenes.py::load_scene`` imports ``cv2``, inside the
-call that reads a JPEG scene's frame, ``_load_cv2``), runs on the card
+OpenCV, Pillow or ``transformers`` at module level (none is installed beside
+its GPU runtime; ``cv2`` is imported only inside the calls that read a
+JPEG frame: ``data/scenes.py::_load_cv2``, ``data/gt_tooling.py::_read_rgb``,
+and by the visualiser's MP4 writers), runs on the card
 unless the caller asks for the CPU (the deep backends included), and a
 kernel wrapper on a CUDA tensor launches its kernel or raises."""
 
@@ -27,6 +28,9 @@ from nsof_tpu_torch.data.scenes import SceneData
 from nsof_tpu_torch.models.flowformer import FlowFormer, FlowFormerConfig
 from nsof_tpu_torch.models.raft import RAFT, RaftConfig
 from nsof_tpu_torch.models import yolov8
+from nsof_tpu_torch.models import owlvit as towl
+from nsof_tpu_torch.models import sam as tsam
+from nsof_tpu_torch.data import gt_tooling as tgt
 from nsof_tpu_torch.ops import components as tcomp
 from nsof_tpu_torch.pipelines import deep_flow as tdeep
 from nsof_tpu_torch.pipelines import detection as tdetect
@@ -89,11 +93,13 @@ def _image_library_imports(path):
 def test_no_image_library_at_module_level(path):
     """OpenCV and Pillow are not installed beside the port's GPU runtime: no
     module imports them when it is imported, and only ``load_scene`` (the
-    reference's JPEG scenes) and the visualiser's MP4 writers
+    reference's JPEG scenes), ``generate_gt_masks``'s reader of a non-PNG
+    frame (``_read_rgb``) and the visualiser's MP4 writers
     (``require_cv2``) import ``cv2`` at all."""
     found = _image_library_imports(path)
     rel = str(path.relative_to(ROOT))
     allowed = {"nsof_tpu_torch/data/scenes.py": [("_load_cv2", "cv2")],
+               "nsof_tpu_torch/data/gt_tooling.py": [("_read_rgb", "cv2")],
                "nsof_tpu_torch/utils/visualize.py": [("require_cv2", "cv2")]}.get(rel, [])
     assert all(f in allowed for f in found), f"{rel} imports {found}"
 
@@ -114,15 +120,18 @@ def test_training_modules_are_scanned(rel):
 
 
 DETECTION_FILES = ["models/yolov8.py", "pipelines/detection.py", "utils/visualize.py",
-                   "utils/colormaps.py", "data/gt_tooling.py", "device/io.py", "cli.py"]
+                   "utils/colormaps.py", "data/gt_tooling.py", "device/io.py", "cli.py",
+                   "models/sam.py", "models/owlvit.py", "ops/resize.py"]
 
 
 @pytest.mark.parametrize("rel", DETECTION_FILES)
 def test_detection_modules_are_scanned(rel):
-    """The detection slice's modules are among the files scanned above and
-    import no image or plotting library (OpenCV, Pillow, matplotlib) and no
-    h5py at module level; ``utils/visualize.py`` imports ``cv2`` only inside
-    ``require_cv2``, for the MP4 writers."""
+    """The detection and ground-truth tooling slices' modules are among the
+    files scanned above and import no image or plotting library (OpenCV,
+    Pillow, matplotlib), no h5py and no ``transformers`` at module level;
+    ``utils/visualize.py`` imports ``cv2`` only inside ``require_cv2``, for
+    the MP4 writers, and ``data/gt_tooling.py`` only inside ``_read_rgb``,
+    for a non-PNG frame (``transformers`` inside the Hugging Face classes)."""
     path = ROOT / "nsof_tpu_torch" / rel
     assert path in PORT_FILES
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -132,8 +141,9 @@ def test_detection_modules_are_scanned(rel):
             top |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
             top.add(node.module.split(".")[0])
-    assert not {"cv2", "PIL", "matplotlib", "h5py", "ultralytics"} & top, top
-    allowed = [("require_cv2", "cv2")] if rel == "utils/visualize.py" else []
+    assert not {"cv2", "PIL", "matplotlib", "h5py", "ultralytics", "transformers"} & top, top
+    allowed = {"utils/visualize.py": [("require_cv2", "cv2")],
+               "data/gt_tooling.py": [("_read_rgb", "cv2")]}.get(rel, [])
     assert all(f in allowed for f in _image_library_imports(path))
 
 
@@ -157,8 +167,10 @@ def test_import_leaves_jax_out():
         "import nsof_tpu_torch.data.imgproc, nsof_tpu_torch.utils.ppm, nsof_tpu_torch.__main__\n"
         "import nsof_tpu_torch.models.yolov8, nsof_tpu_torch.pipelines.detection\n"
         "import nsof_tpu_torch.utils.visualize, nsof_tpu_torch.utils.colormaps\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'nsof_tpu', 'cv2', 'PIL', 'matplotlib', 'h5py')]\n"
+        "import nsof_tpu_torch.models.sam, nsof_tpu_torch.models.owlvit\n"
+        "import nsof_tpu_torch.data.gt_tooling, nsof_tpu_torch.ops.resize\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'nsof_tpu', 'cv2', 'PIL', 'matplotlib', 'h5py', 'transformers')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -245,6 +257,13 @@ ENTRY_POINTS = {
     "create_flowformer_state": lambda c, m, f, g, **kw: ptrain.create_flowformer_state(
         0, cfg=FlowFormerConfig(encoder_depth=1, decoder_depth=1), **kw),
     "TorchYoloDetector": lambda c, m, f, g, **kw: _yolo(**kw)(g[0]),
+    "SamPredictor": lambda c, m, f, g, **kw: tsam.SamPredictor(_tiny_sam(), **kw).set_image(
+        g[0, :48, :64]),
+    "TorchSamSegmenter": lambda c, m, f, g, **kw: tgt.TorchSamSegmenter(_tiny_sam(), **kw)(
+        g[0, :48, :64], "object"),
+    "TorchOwlVitBoxProposer": lambda c, m, f, g, **kw: tgt.TorchOwlVitBoxProposer.from_params(
+        towl.TINY_OWLVIT, towl.synthetic_owlvit_state_dict(towl.TINY_OWLVIT),
+        tgt.toy_tokenizer(99, 16), **kw)(g[0, :48, :64], "object"),
     "run_detection": lambda c, m, f, g, **kw: tdetect.run_detection(
         _scene(c, m, f, g), tdetect.ThresholdBlobDetector(), **kw),
 }
@@ -258,6 +277,13 @@ def _yolo(**kw):
 
 
 TINY_RAFT = RaftConfig(small=True, iters=1)
+
+
+def _tiny_sam():
+    model = tsam.Sam(tsam.TINY_SAM)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in tsam.synthetic_sam_state_dict(tsam.TINY_SAM).items()})
+    return model
 
 
 def _raft_backend(**kw):
@@ -290,6 +316,31 @@ def test_entry_point_needs_cuda_or_cpu(monkeypatch, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ENTRY_POINTS[name](*args)
     ENTRY_POINTS[name](*args, device="cpu")
+
+
+HF_ENTRY_POINTS = {
+    "OwlVitBoxProposer": tgt.OwlVitBoxProposer,
+    "TransformersSamSegmenter": tgt.TransformersSamSegmenter,
+    "TorchOwlVitBoxProposer": tgt.TorchOwlVitBoxProposer,
+    "TorchSamSegmenter.for_checkpoint": tgt.TorchSamSegmenter.for_checkpoint,
+    "lang_sam_segmenter": lambda name, **kw: tgt.lang_sam_segmenter(name, name, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HF_ENTRY_POINTS))
+def test_weight_readers_need_cuda_or_cpu(monkeypatch, tmp_path, name):
+    """The ground-truth tooling's constructors that read weights from local
+    files raise without a CUDA device unless given ``device='cpu'``, before
+    they look for the weights; given it, they raise ``OSError`` on a missing
+    model without importing ``transformers`` (``tests/test_torch_owlvit.py``
+    runs the Hugging Face classes from local directories)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setitem(sys.modules, "transformers", None)  # importing it raises ImportError
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HF_ENTRY_POINTS[name](missing)
+    with pytest.raises(OSError):
+        HF_ENTRY_POINTS[name](missing, device="cpu")
 
 
 def test_cli_deep_needs_cuda_or_cpu(monkeypatch, tmp_path):

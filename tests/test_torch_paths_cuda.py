@@ -12,6 +12,13 @@ equals the plain route and, with cuDNN's TF32 off, the CPU within 1e-3 px.
 One RAFT train step (``make_train_step``, 64×96, B = 2) on the card equals
 the CPU port's to the CPU tests' bounds (``chip_smoke.drive_train_parity``),
 launches no kernel of the port and makes no host synchronisation.
+The ground-truth tooling at its test sizes: ``SamPredictor`` (``TINY_SAM``)
+and ``TorchOwlVitBoxProposer`` (``TINY_OWLVIT``) on the card against the CPU
+port, cuDNN's TF32 off, within ``chip_smoke``'s GT_SAM_F32_REL and
+GT_OWL_F32_REL, no kernel of the port launched.  ``OwlVitBoxProposer`` and
+``TransformersSamSegmenter`` built without a device, from tiny local
+Hugging Face directories (``tests/tiny_hf.py``), run on the card (skipped
+where ``transformers`` is missing).
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_paths_cuda.py`` (the card's machine has no jax, which the
@@ -24,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import bgr, plain_route
+from chip_smoke import (GT_OWL_F32_REL, GT_SAM_F32_REL, bgr, f32_convs, gap, gt_sam,
+                        plain_route)
 from nsof_tpu_torch.config import DATASETS
 from nsof_tpu_torch.ops import components as tcc
 from nsof_tpu_torch import _build
@@ -180,3 +188,48 @@ def test_train_step_on_the_card(cuda_device):
     assert host_syncs(lambda: step(state, batch)) == {}
     torch.cuda.synchronize()
     assert not any(_build.LAUNCHES.values()) and state.step == 2
+
+
+@pytest.mark.cuda
+def test_sam_predictor_on_the_card(cuda_device):
+    from nsof_tpu_torch.models import sam as tsam
+
+    img = np.random.default_rng(0).integers(0, 256, (60, 80, 3), dtype=np.uint8)
+    boxes = np.array([[5, 6, 50, 40], [0, 0, 80, 60]], np.float32)
+    cpu = tsam.SamPredictor(gt_sam(tsam.TINY_SAM), device="cpu")
+    cpu.set_image(img)
+    want = cpu.predict(boxes=boxes, return_logits=True)
+    card = tsam.SamPredictor(gt_sam(tsam.TINY_SAM, cuda_device), device=cuda_device)
+    _build.reset_launches()
+    with f32_convs():
+        card.set_image(img)
+        got = card.predict(boxes=boxes, return_logits=True)
+    assert not any(_build.LAUNCHES.values())
+    for g, w in zip(got, want):
+        assert gap(g, w) <= GT_SAM_F32_REL
+
+
+@pytest.mark.cuda
+def test_owlvit_proposer_on_the_card(cuda_device):
+    from nsof_tpu_torch.data import gt_tooling as tgt
+    from nsof_tpu_torch.models import owlvit as towl
+
+    cfg = towl.TINY_OWLVIT
+    state = towl.synthetic_owlvit_state_dict(cfg, seed=5)
+    tok = tgt.toy_tokenizer(cfg.vocab_size, cfg.max_text_len)
+    img = np.random.default_rng(1).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    props = [tgt.TorchOwlVitBoxProposer.from_params(cfg, state, tok, -1.0, device=d)
+             for d in ("cpu", cuda_device)]
+    with f32_convs():
+        want, got = (np.asarray(p(img, "moving object")) for p in props)
+    assert got.shape == want.shape == (16, 4)
+    assert np.abs(got - want).max() <= GT_OWL_F32_REL * max(img.shape)
+
+
+@pytest.mark.cuda
+def test_hf_classes_default_to_the_card(cuda_device, tmp_path):
+    pytest.importorskip("transformers")
+    from tiny_hf import drive_hf_classes, tiny_hf_dirs
+
+    owl, seg, _ = drive_hf_classes(*tiny_hf_dirs(tmp_path))
+    assert owl.device.type == seg.device.type == "cuda"

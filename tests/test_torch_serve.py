@@ -15,8 +15,12 @@ package's, with ``device='cpu'``.
 - ``BrightnessSegmenter``'s masks, in order, equal to the JAX one's
   (OpenCV's labelling) on random blob images, bright and "dark" prompts.
 - The server's lifecycle, ``tests/test_serve.py``'s checks ported: GET /
-  and /api/health, POST /api/segment and /api/flow, a malformed and a JPEG
+  and /api/health, POST /api/segment (no local OWL-ViT or SAM weights: the
+  ``brightness-fallback`` backend) and /api/flow, a malformed and a JPEG
   payload answered with 400, the server up after them.
+- ``/api/segment`` with an injected OWL-ViT → SAM chain: ``box_threshold``
+  changes the instances for its request and leaves the shared proposer's
+  threshold as it was.
 """
 
 import base64
@@ -29,6 +33,7 @@ import cv2
 import numpy as np
 import pytest
 import scipy.ndimage
+import torch
 
 from nsof_tpu.data.gt_tooling import BrightnessSegmenter as JSegmenter
 from nsof_tpu.serve import app as japp
@@ -156,7 +161,8 @@ def test_server_endpoints_end_to_end():
         img[10:30, 20:40] = 255
         code, seg = post("/api/segment", {"image": b64(img), "prompt": "white box"})
         assert code == 200, seg
-        assert seg["n_instances"] == 1 and seg["backend"] == "BrightnessSegmenter"
+        # no local OWL-ViT or SAM weights: the chain falls back
+        assert seg["n_instances"] == 1 and seg["backend"] == "brightness-fallback"
         assert seg["boxes"] == [[20, 10, 39, 29]] and seg["labels"] == ["white box"]
         assert seg["image"].startswith("data:image/png;base64,")
 
@@ -187,3 +193,38 @@ def test_server_endpoints_end_to_end():
         srv.server_close()
         thread.join(timeout=60)
     assert not thread.is_alive()
+
+
+def test_segment_chain_box_threshold():
+    """``/api/segment`` with an injected OWL-ViT → SAM chain (the port's
+    models at ``TINY_OWLVIT`` and ``TINY_SAM`` on seeded weights, the toy
+    tokenizer): ``box_threshold`` sets the proposer's score threshold for
+    that request only — the instances equal the chain called directly at
+    that threshold, and the shared proposer keeps its own."""
+    from nsof_tpu_torch.data import gt_tooling as tgt
+    from nsof_tpu_torch.models import owlvit as to
+    from nsof_tpu_torch.models import sam as ts
+
+    cfg = to.TINY_OWLVIT
+    proposer = tgt.TorchOwlVitBoxProposer.from_params(
+        cfg, to.synthetic_owlvit_state_dict(cfg, seed=5),
+        tgt.toy_tokenizer(cfg.vocab_size, cfg.max_text_len), score_threshold=0.3, device="cpu")
+    sam = ts.Sam(ts.TINY_SAM)
+    sam.load_state_dict({k: torch.from_numpy(v)
+                         for k, v in ts.synthetic_sam_state_dict(ts.TINY_SAM, 7).items()})
+    chain = tgt.TorchSamSegmenter(sam, proposer, device="cpu")
+    svc = tapp.DemoService(segmenter=chain, device="cpu")
+    img = np.random.default_rng(8).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    body = {"image": base64.b64encode(encode_png(img)).decode(), "prompt": "bright object"}
+    scores = []
+    for thr in (None, 0.0, 1.0):
+        out = svc.segment(body if thr is None else {**body, "box_threshold": thr})
+        assert out["backend"] == "TorchSamSegmenter"
+        assert proposer.score_threshold == 0.3 and chain.box_proposer is proposer
+        proposer.score_threshold = 0.3 if thr is None else thr
+        want = chain(img, "bright object")
+        proposer.score_threshold = 0.3
+        assert out["n_instances"] == len(want)
+        scores.append(out["n_instances"])
+    # every patch's box at 0, none at 1; the default lies between
+    assert scores[1] == (cfg.image_size // cfg.patch_size) ** 2 and scores[2] == 0
