@@ -154,6 +154,21 @@ weights are in the repo):
   GT_CHAIN_FRAMES PNG frames (ms a frame, instances a frame), then
   ``/api/segment`` with the chain injected, ``box_threshold`` unset and set.
 
+Then the parallel slice (``parallel``), at world size 1 over NCCL (the
+card's machine has one GPU; collectives across GPUs are not exercised): a
+('data', 'model') mesh from ``make_mesh(1)``;
+``make_sharded_seg_batch`` at the main path's workload (B = 256,
+``'fused'``), K1–K4 launched as the unsharded path launches them (counts
+zeroed just before, read just after), its outputs bit for bit
+``seg_batch_fast``'s, both timed; the dp×tp RAFT-basic step at the chairs
+stage uncut on the 1×1 mesh against the one-device step (loss and updated
+parameters, cuDNN TF32 off), seconds a step for both; ``make_spatial_flow``
+on one 'space' rank at 480×640 (grasp) against ``farneback`` in the
+interior band; ``make_raft_pp_flow`` on one stage at the deep window
+against the test-mode forward (TF32 off and at the defaults); then
+``torchrun --nproc-per-node 1 -m nsof_tpu_torch train --mesh 1x1`` (RAFT-small,
+one chairs step), its checkpoint restored on one device.
+
 Last, each kernel is timed at its path's level-0 shapes beside its bound
 and its plain version (K7 also at radius 8; K8 at the stream's shapes,
 its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound; K1 also at the
@@ -224,7 +239,13 @@ from nsof_tpu_torch.utils import reporting
 from nsof_tpu_torch.utils.flow_viz import flow_to_image
 from nsof_tpu_torch.utils.png import decode_png, encode_png
 from nsof_tpu_torch.data.flow_datasets import synthetic_affine_dataset, write_flo
+import torch.distributed as dist
+
+from nsof_tpu_torch.parallel import mesh as pmesh
 from nsof_tpu_torch.parallel import train as ptrain
+from nsof_tpu_torch.parallel.inference import make_sharded_seg_batch
+from nsof_tpu_torch.parallel.pipeline import make_raft_pp_flow
+from nsof_tpu_torch.parallel.spatial import make_spatial_flow
 from nsof_tpu_torch.train import optim as toptim
 from nsof_tpu_torch.train.curriculum import (FLOWFORMER_STAGES, RAFT_STANDARD_STAGES,
                                              build_stage_items, mixed_batch_iterator, run_stage)
@@ -439,6 +460,21 @@ GT_SAM_F32_REL, GT_SAM_TF32_REL = 6e-6, 3.5e-3
 GT_OWL_F32_REL, GT_OWL_TF32_REL = 3e-5, 2e-3
 # the chain over the runner scene's first GT_CHAIN_FRAMES frames as PNG
 GT_CHAIN_FRAMES = 7
+# the parallel slice at world size 1 over NCCL (the card's machine has one
+# GPU): the dp×tp step on a 1×1 mesh against the one-device step from the
+# same seed and batch, cuDNN TF32 off: the loss within PAR_TRAIN_LOSS relative
+# and every parameter after the update within 2·lr₀ + 1e-6·max |p| (the CPU
+# tests' bounds), then PAR_TRAIN_STEPS timed steps each at the defaults; sp on
+# one 'space' rank at 480×640 with the grasp preset and a halo of SP_HALO rows
+# against the exact farneback in the interior band (rows SP_HALO … H −
+# SP_HALO) within the exact path's bounds, SP_MAX and SP_MEAN px (the CPU
+# read 5.8e-6 and 6.3e-7); pp on one stage at the deep window, RAFT-basic, 20
+# iterations, PP_M microbatches of one pair, against RAFT's test-mode forward
+PAR_TRAIN_LOSS = 1e-5
+PAR_TRAIN_STEPS = 3
+SP_HALO = 96
+SP_MAX, SP_MEAN = 1e-2, 5e-4
+PP_M = 2
 # K9 against its plain loop, IoU threshold 0.45: name → (B, N, inputs,
 # plus_one).  YOLO's 300 candidates at B = 1 and 8, N = 1, no and every
 # candidate, equal scores, boxes with the class offset (up to 79 · 7680
@@ -3073,6 +3109,199 @@ def drive_gt_chain(dev, sam_model, prop) -> None:
           "card": smi_line()})
 
 
+def drive_parallel_seg(dev, mesh) -> None:
+    """``make_sharded_seg_batch`` on the 1×1 mesh at the main path's workload
+    (grasp, B = 256, ``'fused'``): K1–K4 launched as the unsharded path
+    launches them, masks, boxes and ``any_active`` bit for bit
+    ``seg_batch_fast``'s; both timed."""
+    cfg = bench_cfg()
+    fn = make_sharded_seg_batch(mesh, cfg, kernel_mode="fused")
+    mem, prev, nxt = bench_inputs(B_MAIN, 0, dev)
+    launches, out = launched_by(lambda: fn(mem, prev, nxt))
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"parallel_seg: launches {launches} != {EXPECTED_LAUNCHES}")
+    ref = seg_batch_fast(mem, prev, nxt, cfg, kernel_mode="fused")
+    for key in ("mask", "box", "any_active"):
+        if not torch.equal(out[key], ref[key]):
+            raise AssertionError(f"parallel_seg: {key} differs from seg_batch_fast's")
+    syncs = host_syncs(lambda: fn(mem, prev, nxt))
+    variants = [(mem, prev, nxt)] + [bench_inputs(B_MAIN, v, dev) for v in (1, 2)]
+    ms, samples = median_ms(fn, variants)
+    ms_one, samples_one = median_ms(
+        lambda m, p, n: seg_batch_fast(m, p, n, cfg, kernel_mode="fused"), variants)
+    emit({"phase": "parallel_seg", "mesh": pmesh.mesh_shape(mesh), "batch": B_MAIN,
+          "kernel_mode": "fused", "launches_per_call": launches, "bit_equal": True,
+          "active": int(out["any_active"].sum()), "host_syncs_per_call": sum(syncs.values()),
+          "ms_per_batch": ms, "unsharded_ms_per_batch": ms_one, "samples_ms": samples,
+          "unsharded_samples_ms": samples_one, "card": smi_line()})
+
+
+def drive_parallel_train(dev, mesh, samples) -> None:
+    """The dp×tp step on the 1×1 mesh against the one-device step at the
+    chairs stage uncut (RAFT-basic, batch 10, 368×496, 12 iterations), from
+    the same seed and batch: the first step with cuDNN TF32 off held to
+    PAR_TRAIN_LOSS and the update bound, then PAR_TRAIN_STEPS timed steps
+    each at PyTorch's defaults after one warm-up."""
+    stage = RAFT_STANDARD_STAGES[0]
+    rng = np.random.default_rng(0)
+    batches = mixed_batch_iterator(build_stage_items(stage, {"chairs": lambda: samples}),
+                                   stage.batch_size, rng)
+    first, timed = next(batches), [next(batches) for _ in range(PAR_TRAIN_STEPS + 1)]
+    cfg = RaftConfig()
+    runs = {}
+    for name, where in (("one_device", dev), ("mesh_1x1", mesh)):
+        model, tx, state = ptrain.create_train_state(0, where, cfg=cfg, lr=stage.lr,
+                                                     num_steps=stage.num_steps)
+        step = ptrain.make_train_step(model, tx, where, iters=cfg.iters, gamma=stage.gamma)
+        with f32_convs():
+            launches, (state, metrics) = launched_by(lambda: step(state, first))
+        if launches:
+            raise AssertionError(f"parallel_train {name}: the step launched {launches}")
+        full = ptrain.full_state_dict(state)["model"] if state.mesh is not None \
+            else model.state_dict()
+        params = {k: v.detach().to('cpu', copy=True) for k, v in full.items()}
+        step_s = []
+        for b in timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.stack([v.float() for v in m.values()]).tolist()
+            step_s.append(time.perf_counter() - t0)
+        runs[name] = {"loss": metrics["loss"].item(), "params": params, "step_s": step_s[1:],
+                      "sharded": len(ptrain._sharded_names(model))}
+        del model, tx, state, step, metrics
+        torch.cuda.empty_cache()
+    one, tp = runs["one_device"], runs["mesh_1x1"]
+    loss_err = abs(tp["loss"] - one["loss"]) / one["loss"]
+    if not (np.isfinite(one["loss"]) and loss_err <= PAR_TRAIN_LOSS):
+        raise AssertionError(f"parallel_train: loss {tp['loss']} against {one['loss']}")
+    lr0 = toptim.onecycle_schedule(stage.lr, stage.num_steps)(0)
+    worst = 0.0
+    for name, ref in one["params"].items():
+        err = (tp["params"][name] - ref).abs().max().item()
+        if not err <= 2 * lr0 + 1e-6 * ref.abs().max().item():
+            raise AssertionError(f"parallel_train: {name} {err} off after the step")
+        worst = max(worst, err / lr0)
+    emit({"phase": "parallel_train", "mesh": pmesh.mesh_shape(mesh),
+          "model": "raft-basic (cnet 'batch': GroupNorm)", "stage": stage.name,
+          "batch": stage.batch_size, "crop": list(stage.image_size), "iters": cfg.iters,
+          "tp_sharded_params": tp["sharded"], "loss": one["loss"], "mesh_loss": tp["loss"],
+          "loss_rel_err": loss_err, "param_max_abs_err_in_lr0": worst,
+          "tolerances": {"loss_rel": PAR_TRAIN_LOSS, "params": "2·lr0 + 1e-6·max|p|"},
+          "parity_precision": "float32 (cuDNN TF32 off)",
+          "step_s_one_device": one["step_s"], "step_s_mesh": tp["step_s"],
+          "step_s_median_one_device": float(np.median(one["step_s"])),
+          "step_s_median_mesh": float(np.median(tp["step_s"])),
+          "timing_precision": "PyTorch defaults", "card": smi_line()})
+
+
+def drive_parallel_sp(dev) -> None:
+    """``make_spatial_flow`` on one 'space' rank at 480×640 (grasp, halo
+    SP_HALO) against the exact ``farneback`` in the interior band; both
+    timed."""
+    params = PRESETS["grasp"]
+    mesh = pmesh.init_mesh((1,), ("space",))
+    fn = make_spatial_flow(mesh, params, SP_HALO)
+    variants = [tuple(x[0] for x in bench_inputs(1, v, dev)[1:]) for v in range(3)]
+    prev, nxt = variants[0]
+    got = fn(prev, nxt)
+    ref = farneback(prev, nxt, params, device=dev)
+    if got.shape != (H, W, 2) or not torch.isfinite(got).all():
+        raise AssertionError(f"parallel_sp: flow {tuple(got.shape)}")
+    band = slice(SP_HALO, H - SP_HALO)
+    err = (got[band] - ref[band]).abs()
+    if not (err.max().item() <= SP_MAX and err.mean().item() <= SP_MEAN):
+        raise AssertionError(f"parallel_sp: interior {err.max().item()} max, "
+                             f"{err.mean().item()} mean px from farneback")
+    ms, samples = median_ms(fn, variants)
+    ms_one, samples_one = median_ms(lambda a, b: farneback(a, b, params, device=dev), variants)
+    emit({"phase": "parallel_sp", "mesh": pmesh.mesh_shape(mesh), "frame": [H, W],
+          "preset": "grasp", "halo": SP_HALO, "interior_rows": [SP_HALO, H - SP_HALO],
+          "interior_max_abs_err_px": err.max().item(),
+          "interior_mean_abs_err_px": err.mean().item(),
+          "tolerances": {"max": SP_MAX, "mean": SP_MEAN}, "ms": ms, "unsharded_ms": ms_one,
+          "samples_ms": samples, "unsharded_samples_ms": samples_one, "card": smi_line()})
+
+
+def drive_parallel_pp(dev) -> None:
+    """``make_raft_pp_flow`` on one stage at the deep window (RAFT-basic at
+    raft-things widths, 20 iterations, PP_M microbatches of one pair)
+    against the test-mode forward: within DEEP_FLOW_TOL with TF32 off and
+    DEEP_TF32_TOL at the defaults; both timed at the defaults."""
+    mesh = pmesh.init_mesh((1,), ("stage",))
+    model = deep_model("raft-basic").to(dev).eval()
+    _, prevs, nxts = deep_inputs(dev)
+    img1 = torch.stack([prevs[m][:DEEP_WIN[0], :DEEP_WIN[1]] for m in range(PP_M)])[:, None]
+    img2 = torch.stack([nxts[m][:DEEP_WIN[0], :DEEP_WIN[1]] for m in range(PP_M)])[:, None]
+    fn = make_raft_pp_flow(mesh, model.cfg, DEEP_ITERS)
+
+    def unsharded(a, b):
+        return torch.stack([model(a[m], b[m], iters=DEEP_ITERS, test_mode=True)[1]
+                            for m in range(PP_M)])
+
+    with torch.no_grad():
+        with f32_convs():
+            got, ref = fn(model, img1, img2), unsharded(img1, img2)
+        err = flow_err(got, ref, DEEP_FLOW_TOL, "parallel_pp (TF32 off)")
+        err_tf32 = flow_err(fn(model, img1, img2), ref, DEEP_TF32_TOL, "parallel_pp (defaults)")
+        ms, samples = median_ms(lambda a, b: fn(model, a, b), [(img1, img2)])
+        ms_one, samples_one = median_ms(unsharded, [(img1, img2)])
+    emit({"phase": "parallel_pp", "mesh": pmesh.mesh_shape(mesh), "model": "raft-basic",
+          "window": list(DEEP_WIN), "iters": DEEP_ITERS, "microbatches": PP_M,
+          "flow_max_abs_err_px_f32": err, "flow_max_abs_err_px_defaults": err_tf32,
+          "tolerances": {"f32": DEEP_FLOW_TOL, "defaults": DEEP_TF32_TOL}, "ms": ms,
+          "unsharded_ms": ms_one, "samples_ms": samples, "unsharded_samples_ms": samples_one,
+          "card": smi_line()})
+    del model
+
+
+def drive_parallel_cli(dev, samples) -> None:
+    """``torchrun --nproc-per-node 1 -m nsof_tpu_torch train --mesh 1x1
+    --stage chairs --small --steps 1`` on a FlyingChairs layout of the
+    phase's synthetic pairs (NCCL at world size 1); its checkpoint, written
+    by the first rank in the one-device layout, restores on one device."""
+    with tempfile.TemporaryDirectory() as tmp:
+        d = chairs_layout(pathlib.Path(tmp), samples)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+               "--master-port", str(pmesh.free_port()), "-m", "nsof_tpu_torch", "train",
+               "--mesh", "1x1", "--data-root", str(d), "--ckpt-root", str(d / "ckpt"),
+               "--stage", "chairs", "--small", "--steps", "1", *CLI_ARGS]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise AssertionError(f"parallel_cli: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        printed = json.loads(proc.stdout.strip().splitlines()[-1])
+        _, _, state = ptrain.create_train_state(1, dev, cfg=RaftConfig(small=True))
+        state, step = restore_checkpoint(d / "ckpt" / "chairs", state)
+        finite = all(torch.isfinite(v).all().item() for v in state.params.values())
+    if printed != {"stages": ["chairs"]} or step != 1 or not finite:
+        raise AssertionError(f"parallel_cli: printed {printed}, restored step {step}, "
+                             f"finite {finite}")
+    emit({"phase": "parallel_cli", "command": "torchrun --nproc-per-node 1 -m nsof_tpu_torch "
+          "train --mesh 1x1 --stage chairs --small --steps 1", "seconds": seconds,
+          "printed": printed, "restored_step_on_one_device": step, "card": smi_line()})
+
+
+def drive_parallel(dev, samples) -> None:
+    """The parallel slice at world size 1 over NCCL: dp seg, the dp×tp train
+    step, sp and pp; the process group is destroyed at the end."""
+    mesh = pmesh.make_mesh(1)
+    try:
+        emit({"phase": "parallel", "backend": dist.get_backend(),
+              "world_size": dist.get_world_size(), "mesh": pmesh.mesh_shape(mesh)})
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"parallel: backend {dist.get_backend()}, not nccl")
+        drive_parallel_seg(dev, mesh)
+        drive_parallel_train(dev, mesh, samples)
+        drive_parallel_sp(dev)
+        drive_parallel_pp(dev)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    drive_parallel_cli(dev, samples)
+
+
 def k9_time(launches: dict, errs: dict, args) -> dict:
     """K9's line at the YOLO post step's shapes (``args``: the inputs of its
     first launch in run_detection): its plain loop, ``torchvision.ops.nms``
@@ -3484,6 +3713,13 @@ def main() -> None:
     del sam_model, prop
     torch.cuda.empty_cache()
     emit({"phase": "phase_seconds", "name": "gt", "seconds": time.perf_counter() - start,
+          "card": smi_line()})
+
+    # ── the parallel slice at world size 1 over NCCL: dp seg, dp×tp training,
+    #    sp Farnebäck, pp RAFT ──
+    start = time.perf_counter()
+    drive_parallel(dev, samples)
+    emit({"phase": "phase_seconds", "name": "parallel", "seconds": time.perf_counter() - start,
           "card": smi_line()})
 
     # ── per-kernel times at each path's level-0 shapes ──

@@ -8,9 +8,11 @@ Subcommands, with the JAX CLI's flags and defaults plus ``--device``
 - ``deep`` — the deep-backend pipelines (RAFT or FlowFormer, 1/3 frames,
   MEMSIZE/3 gating) on a scene; ``--torch-ckpt`` loads a reference
   checkpoint, ``--ckpt`` the port's own training checkpoint (RAFT).
-- ``train`` — the staged RAFT curriculum (train_standard.sh) on one device
-  (``--mesh`` takes only ``1x1``); a checkpoint directory per stage under
-  ``--ckpt-root``.
+- ``train`` — the staged RAFT curriculum (train_standard.sh) on one device,
+  or with ``--mesh DPxTP`` on a data×model mesh of ``torchrun``'s ranks
+  (``dp·tp`` must equal ``WORLD_SIZE``; NCCL on the card, gloo with
+  ``--device cpu``); a checkpoint directory per stage under
+  ``--ckpt-root``, written by the first rank in the one-device layout.
 - ``validate`` — EPE / F1 over a Sintel, KITTI or FlyingChairs split, or
   the benchmark's submission files; Farnebäck, RAFT (``--torch-ckpt`` or the
   port's ``--ckpt``) or FlowFormer.
@@ -379,17 +381,15 @@ def cmd_stream(args) -> int:
 
 def cmd_train(args) -> int:
     """Staged RAFT training (train_standard.sh:3-6 / fetch_dataloader stage
-    mixes) on one device."""
+    mixes) on one device, or on a data×model mesh (``--mesh DPxTP`` under
+    ``torchrun --nproc-per-node DP·TP``)."""
     import dataclasses
+    import os
 
     from nsof_tpu_torch import _build
     from nsof_tpu_torch.models.raft import RaftConfig
     from nsof_tpu_torch.train.curriculum import RAFT_STANDARD_STAGES, run_curriculum
 
-    if args.mesh not in (None, "1x1"):
-        raise ValueError(f"--mesh {args.mesh}: the port trains on one device (1x1); data×model "
-                         "meshes wait for the parallel slice (torch.distributed)")
-    device = _build.resolve_device(args.device)
     stages = RAFT_STANDARD_STAGES
     if args.stage:
         by_name = {s.name: s for s in RAFT_STANDARD_STAGES}
@@ -397,15 +397,33 @@ def cmd_train(args) -> int:
             print(f"unknown stage {args.stage!r}; have {sorted(by_name)}")
             return 2
         stages = (dataclasses.replace(by_name[args.stage], restore_from=None),)
-    results = run_curriculum(
-        device,
-        args.data_root,
-        args.ckpt_root,
-        stages=stages,
-        raft_cfg=RaftConfig(small=args.small),
-        steps_per_stage=args.steps,
-        val_freq=args.val_freq,
-    )
+    if args.mesh is None:
+        device = _build.resolve_device(args.device)
+    else:
+        import torch.distributed as dist
+
+        from nsof_tpu_torch.parallel.mesh import make_mesh
+
+        dp, tp = (int(x) for x in args.mesh.split("x"))
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        if dp * tp != world:
+            raise ValueError(f"--mesh {args.mesh}: dp·tp = {dp * tp} must equal WORLD_SIZE "
+                             f"({world}); start the ranks with torchrun --nproc-per-node "
+                             f"{dp * tp}")
+        device = make_mesh(dp * tp, model_parallel=tp, device=args.device)
+    try:
+        results = run_curriculum(
+            device,
+            args.data_root,
+            args.ckpt_root,
+            stages=stages,
+            raft_cfg=RaftConfig(small=args.small),
+            steps_per_stage=args.steps,
+            val_freq=args.val_freq,
+        )
+    finally:
+        if args.mesh is not None:
+            dist.destroy_process_group()
     print(json.dumps({"stages": sorted(results)}))
     return 0
 
@@ -543,7 +561,8 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=None,
                    help="override steps per stage (smoke runs)")
     p.add_argument("--mesh", default=None,
-                   help="data×model mesh: only 1x1 (one device) in the port")
+                   help="data×model mesh DPxTP, e.g. 2x2, over torchrun's ranks "
+                        "(DP·TP = WORLD_SIZE); default one device")
     p.add_argument("--small", action="store_true")
     p.add_argument("--val-freq", type=int, default=5000)
     parsers.append(p)

@@ -276,7 +276,10 @@ def run_stage(
     num_steps: Optional[int] = None,
     val_freq: int = 5000,
 ):
-    """Train one stage on ``device``; returns ``(state, info)``.
+    """Train one stage on ``device``, or on a ('data', 'model') mesh from
+    :func:`~nsof_tpu_torch.parallel.mesh.make_mesh` (every rank calls it with
+    the same ``rng`` seed, so all draw the same global batches; the mesh's
+    first rank writes the metrics log); returns ``(state, info)``.
 
     ``init_params`` (the previous stage's ``state_dict``) replaces the fresh
     initialisation — the optimizer restarts with this stage's schedule,
@@ -292,6 +295,7 @@ def run_stage(
     torch's generator seeded with 0.
     """
     from nsof_tpu_torch.parallel import train as ptrain
+    from nsof_tpu_torch.parallel.mesh import is_first_rank
     from nsof_tpu_torch.train.trainer import MetricLogger, train_loop
 
     steps = num_steps if num_steps is not None else stage.num_steps
@@ -322,7 +326,7 @@ def run_stage(
     items = build_stage_items(stage, scanners)
     batches = mixed_batch_iterator(items, stage.batch_size, rng)
     ckpt_dir = pathlib.Path(ckpt_root) / stage.name
-    logger = MetricLogger(str(ckpt_dir / "metrics.jsonl"))
+    logger = MetricLogger(str(ckpt_dir / "metrics.jsonl") if is_first_rank(state.mesh) else None)
     return train_loop(
         step_fn, state, batches, steps, logger=logger,
         ckpt_dir=str(ckpt_dir), val_freq=val_freq,
@@ -340,8 +344,9 @@ def run_curriculum(
     steps_per_stage: Optional[int] = None,
     val_freq: int = 5000,
 ):
-    """Run the full staged schedule, handing weights stage→stage
-    (train_standard.sh's chained --restore_ckpt invocations).
+    """Run the full staged schedule on ``device`` or a mesh (see
+    :func:`run_stage`), handing weights stage→stage (train_standard.sh's
+    chained --restore_ckpt invocations).
 
     Returns {stage name: final TrainState}."""
     scanners = scanners or default_scanners(data_root)

@@ -9,11 +9,18 @@ bucketed by ground-truth flow magnitude (loss.py:33-40).
 
 Tensor operations only: every loss and metric is a 0-dim tensor on the
 flows' device, so a train step reads nothing back to the host.
+
+Data parallelism: with ``psum`` (a function that sums a tensor over the
+ranks that hold the other rows of the batch, without gradient), each count
+and sum that a mean divides by is the global batch's, and so is every
+metric.  The loss a rank returns is then its rows' share of the global
+batch's loss: the ranks' losses and their gradients sum to the global
+ones.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -30,11 +37,15 @@ def _valid_and_epe(flow_preds, flow_gt, valid, max_flow):
     return mag, valid, epe_map
 
 
-def _epe_metrics(epe_map, valid, denom) -> dict[str, torch.Tensor]:
+def _no_psum(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _epe_metrics(epe_map, valid, denom, psum) -> dict[str, torch.Tensor]:
     zero = torch.zeros((), dtype=epe_map.dtype, device=epe_map.device)
-    out = {"epe": torch.where(valid, epe_map, zero).sum() / denom}
+    out = {"epe": psum(torch.where(valid, epe_map, zero).sum()) / denom}
     for t in (1, 3, 5):
-        out[f"{t}px"] = (valid & (epe_map < t)).sum() / denom
+        out[f"{t}px"] = psum((valid & (epe_map < t)).sum()) / denom
     return out
 
 
@@ -44,6 +55,7 @@ def sequence_loss(
     valid: torch.Tensor,
     gamma: float = 0.8,
     max_flow: float = MAX_FLOW,
+    psum: Callable[[torch.Tensor], torch.Tensor] = _no_psum,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """γ-weighted L1 over refinement iterations with valid/max-flow masking.
 
@@ -56,7 +68,7 @@ def sequence_loss(
     """
     n = len(flow_preds)
     _, valid, epe_map = _valid_and_epe(flow_preds, flow_gt, valid, max_flow)
-    denom = valid.sum().clamp_min(1)
+    denom = psum(valid.sum()).clamp_min(1)
     zero = torch.zeros((), dtype=flow_gt.dtype, device=flow_gt.device)
 
     loss = 0.0
@@ -64,7 +76,7 @@ def sequence_loss(
         w = gamma ** (n - i - 1)
         i_loss = (pred - flow_gt).abs().sum(dim=-1)
         loss = loss + w * torch.where(valid, i_loss, zero).sum() / denom
-    return loss, _epe_metrics(epe_map, valid, denom)
+    return loss, _epe_metrics(epe_map, valid, denom, psum)
 
 
 def flowformer_sequence_loss(
@@ -74,6 +86,7 @@ def flowformer_sequence_loss(
     gamma: float = 0.8,
     max_flow: float = MAX_FLOW,
     gt_thresholds: Sequence[int] = FLOW_GT_THRESHOLDS,
+    psum: Callable[[torch.Tensor], torch.Tensor] = _no_psum,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """FlowFormer's sequence loss (core/loss.py:5-42).
 
@@ -88,18 +101,19 @@ def flowformer_sequence_loss(
     n = len(flow_preds)
     mag, valid, epe_map = _valid_and_epe(flow_preds, flow_gt, valid, max_flow)
     vmask = valid[..., None].to(flow_gt.dtype)
+    numel = psum(torch.full((), flow_gt.numel(), dtype=torch.int64, device=flow_gt.device))
 
     loss = 0.0
     for i, pred in enumerate(flow_preds):
         w = gamma ** (n - i - 1)
-        loss = loss + w * (vmask * (pred - flow_gt).abs()).mean()
+        loss = loss + w * (vmask * (pred - flow_gt).abs()).sum() / numel
 
-    metrics = _epe_metrics(epe_map, valid, valid.sum().clamp_min(1))
+    metrics = _epe_metrics(epe_map, valid, psum(valid.sum()).clamp_min(1), psum)
     fast = (epe_map < 5).to(torch.float32)
     nan = torch.full((), float("nan"), device=flow_gt.device)
     for t in gt_thresholds:
         bucket = valid & (mag < t)
-        cnt = bucket.sum()
-        mean = torch.where(bucket, fast, 0.0).sum() / cnt.clamp_min(1)
+        cnt = psum(bucket.sum())
+        mean = psum(torch.where(bucket, fast, 0.0).sum()) / cnt.clamp_min(1)
         metrics[f"{t}-th-5px"] = torch.where(cnt > 0, mean, nan)
     return loss, metrics

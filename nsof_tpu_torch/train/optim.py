@@ -23,6 +23,11 @@ Each piece computes what the JAX package's optax chain computes:
   gradients are scaled by ``max_norm / ‖g‖`` only when ``‖g‖ ≥ max_norm``
   (``clip_grad_norm_`` would divide by ``‖g‖ + 1e-6`` every time), as tensor
   operations, so the step reads nothing back to the host.
+- on a mesh (:meth:`ClippedAdamW.distribute`) the gradients are first summed
+  over the ranks of 'data' (one all-reduce), and the global norm counts
+  each tensor-parallel shard once (the shards' squares all-reduced over
+  'model') and each replicated parameter once, as JAX's
+  ``clip_by_global_norm`` over the global arrays does;
 - ``torch.optim.AdamW`` is ``optax.adamw``: Adam's step plus ``wd·p`` on
   every parameter (biases and norms included, no mask), times −lr; ``eps``
   outside the square root, betas (0.9, 0.999).
@@ -34,6 +39,7 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 BETAS = (0.9, 0.999)
@@ -65,12 +71,29 @@ def onecycle_schedule(lr: float, num_steps: int) -> Callable[[int], float]:
     return schedule
 
 
-def clip_grad_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def _sq_norm(grads: list[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    if not grads:
+        return torch.zeros((), dtype=like.dtype, device=like.device)
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))) ** 2
+
+
+def clip_grad_global_norm_(params: Iterable[torch.Tensor], max_norm: float,
+                           sharded: Iterable[torch.Tensor] = (), group=None) -> torch.Tensor:
     """Scale the gradients of ``params`` in place by ``max_norm / ‖g‖`` when
     their global norm ``‖g‖ ≥ max_norm`` (``optax.clip_by_global_norm``).
-    Returns the norm, a 0-dim tensor; nothing is read back to the host."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    The parameters in ``sharded`` each hold one shard of a tensor split
+    over ``group``: their squares are all-reduced over it.  Returns the
+    norm, a 0-dim tensor; nothing is read back to the host."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    if group is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        ids = {id(p) for p in sharded}
+        sq_shards = _sq_norm([p.grad for p in params if id(p) in ids], grads[0])
+        dist.all_reduce(sq_shards, group=group)
+        norm = torch.sqrt(_sq_norm([p.grad for p in params if id(p) not in ids], grads[0])
+                          + sq_shards)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -90,6 +113,17 @@ class ClippedAdamW:
                                            lr=1.0, betas=BETAS, eps=eps, weight_decay=wdecay)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer,
                                                            [s for _, s in groups])
+        # on a mesh (distribute): the 'data' and 'model' process groups and
+        # the parameters that hold one 'model' shard each
+        self.data_group = self.model_group = None
+        self.sharded: list[nn.Parameter] = []
+
+    def distribute(self, data_group, model_group, sharded: Iterable[nn.Parameter]) -> None:
+        """Sum the gradients over ``data_group`` before each update and count
+        ``sharded``'s shards once each (over ``model_group``) in the clip's
+        global norm."""
+        self.data_group, self.model_group = data_group, model_group
+        self.sharded = list(sharded)
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -101,7 +135,13 @@ class ClippedAdamW:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = clip_grad_global_norm_(self.params, self.clip)
+        if self.data_group is not None:
+            grads = [p.grad for p in self.params]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=self.data_group)
+            torch._foreach_copy_(grads, [f.view_as(g) for f, g in
+                                         zip(flat.split([g.numel() for g in grads]), grads)])
+        norm = clip_grad_global_norm_(self.params, self.clip, self.sharded, self.model_group)
         self.optimizer.step()
         self.scheduler.step()
         return norm

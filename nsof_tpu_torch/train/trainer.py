@@ -9,7 +9,10 @@ VAL_FREQ=5000, :185-198; resume via --restore_ckpt, :141-142).
 A checkpoint is one ``torch.save`` file, ``<ckpt_dir>/<step>/state.pt``,
 holding the model's ``state_dict``, the optimizer's moments and the
 schedule's position; :func:`restore_checkpoint` loads the newest step in
-place.  The JAX package writes orbax directories, which the port does not
+place.  A state on a mesh is saved in the one-device layout: its
+tensor-parallel shards are gathered and the mesh's first rank alone writes
+the file, so a checkpoint trained on any mesh restores on one device (and
+on a mesh its shards are cut out again).  The JAX package writes orbax directories, which the port does not
 read (orbax is JAX's).
 """
 
@@ -72,11 +75,22 @@ class MetricLogger:
 
 def save_checkpoint(ckpt_dir: str | pathlib.Path, step: int, state) -> None:
     """Write ``state`` (a :class:`~nsof_tpu_torch.parallel.train.TrainState`)
-    as step ``step`` of ``ckpt_dir`` (replaces torch.save, train.py:185-187)."""
-    path = pathlib.Path(ckpt_dir) / str(step)
-    path.mkdir(parents=True, exist_ok=True)
-    torch.save({"model": state.model.state_dict(), "tx": state.tx.state_dict(),
-                "step": step}, path / CKPT_FILE)
+    as step ``step`` of ``ckpt_dir`` (replaces torch.save, train.py:185-187).
+    On a mesh every rank calls it, and it returns once the file is
+    written."""
+    from nsof_tpu_torch.parallel.mesh import is_first_rank, mesh_barrier
+    from nsof_tpu_torch.parallel.train import full_state_dict
+
+    if state.mesh is None:
+        full = {"model": state.model.state_dict(), "tx": state.tx.state_dict()}
+    else:
+        full = full_state_dict(state)
+    if is_first_rank(state.mesh):
+        path = pathlib.Path(ckpt_dir) / str(step)
+        path.mkdir(parents=True, exist_ok=True)
+        torch.save(dict(full, step=step), path / CKPT_FILE)
+    if state.mesh is not None:
+        mesh_barrier(state.mesh)
 
 
 def restore_checkpoint(ckpt_dir: str | pathlib.Path, state):
@@ -91,8 +105,13 @@ def restore_checkpoint(ckpt_dir: str | pathlib.Path, state):
     device = next(state.model.parameters()).device
     saved = torch.load(root / str(steps[-1]) / CKPT_FILE, map_location=device,
                        weights_only=True)
-    state.model.load_state_dict(saved["model"])
-    state.tx.load_state_dict(saved["tx"])
+    if state.mesh is None:
+        state.model.load_state_dict(saved["model"])
+        state.tx.load_state_dict(saved["tx"])
+    else:
+        from nsof_tpu_torch.parallel.train import load_full_state_dict
+
+        load_full_state_dict(state, saved)
     state.step = saved["step"]
     return state, saved["step"]
 

@@ -24,8 +24,8 @@ a random texture, made with numpy from a seed:
 
 Measured on the CPU: masks equal, flow images 99.84 % and 99.77 % equal,
 framesim ``w_final`` 8.6e-7 off, eventsim ``w_final`` equal.  Also: JPEG
-frames, and ``eventsim`` without ``--no-video`` where OpenCV is hidden, raise; ``--mesh`` other than
-``1x1`` raises, and ``train --stage chairs --small --steps 1`` runs on a
+frames, and ``eventsim`` without ``--no-video`` where OpenCV is hidden, raise; ``--mesh`` whose dp·tp
+is not ``WORLD_SIZE`` (1 outside ``torchrun``) raises, and ``train --stage chairs --small --steps 1`` runs on a
 FlyingChairs-shaped layout (``.ppm`` frames, ``.flo`` flows) with the
 chairs stage cut to 64×96 crops and batch 2, writing its checkpoint.
 
@@ -228,7 +228,7 @@ def test_refusals(frames, tmp_path, monkeypatch, trained):
         mp.setitem(sys.modules, "cv2", None)
         with pytest.raises(RuntimeError, match="OpenCV"):
             tcli.main(["eventsim", "--synthetic", "--device", "cpu"])
-    with pytest.raises(ValueError, match="1x1"):
+    with pytest.raises(ValueError, match="WORLD_SIZE"):
         tcli.main(["train", "--data-root", str(tmp_path), "--mesh", "2x1", "--device", "cpu"])
     # the training slice runs: one step of the chairs stage, one checkpoint
     rc, ckpt, printed = trained

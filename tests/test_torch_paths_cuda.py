@@ -18,7 +18,9 @@ port, cuDNN's TF32 off, within ``chip_smoke``'s GT_SAM_F32_REL and
 GT_OWL_F32_REL, no kernel of the port launched.  ``OwlVitBoxProposer`` and
 ``TransformersSamSegmenter`` built without a device, from tiny local
 Hugging Face directories (``tests/tiny_hf.py``), run on the card (skipped
-where ``transformers`` is missing).
+where ``transformers`` is missing).  ``make_sharded_seg_batch`` on
+``make_mesh(1)`` at world size 1 over NCCL (B = 4, ``'fused'``) launches K1–K4
+and equals ``seg_batch_fast`` bit for bit.
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_paths_cuda.py`` (the card's machine has no jax, which the
@@ -233,3 +235,31 @@ def test_hf_classes_default_to_the_card(cuda_device, tmp_path):
 
     owl, seg, _ = drive_hf_classes(*tiny_hf_dirs(tmp_path))
     assert owl.device.type == seg.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_sharded_seg_over_nccl(cuda_device):
+    import torch.distributed as dist
+
+    from nsof_tpu_torch.parallel.inference import make_sharded_seg_batch
+    from nsof_tpu_torch.parallel.mesh import make_mesh
+    from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast
+
+    mesh = make_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl"
+        cfg = _cfg()
+        mem, prev, nxt = _inputs(4, cuda_device)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = make_sharded_seg_batch(mesh, cfg, kernel_mode="fused")(mem, prev, nxt)
+        torch.cuda.synchronize()
+        launched = {k for k, v in _build.LAUNCHES.items() if v}
+        assert launched == {"crop_windows", "poly_expansion", "update_matrices_sep",
+                            "fused_box_update"}
+        want = seg_batch_fast(mem, prev, nxt, cfg, kernel_mode="fused")
+        for key in ("mask", "box", "any_active"):
+            assert torch.equal(got[key], want[key]), key
+        assert got["mask"].device.type == "cuda" and got["any_active"].dtype == torch.bool
+    finally:
+        dist.destroy_process_group()
