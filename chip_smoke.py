@@ -20,7 +20,8 @@ it must go through exactly its kernels, make no host synchronisation and
 agree with the plain route, and it is timed.  Then, on the same 640×480
 grasp workload:
 
-- ``tracking_batch_fast`` at B = 64 (``'fused'``: K1–K4), its boxes equal
+- ``tracking_batch_fast`` at B = 64 (``'fused'``: K1–K4, K9 for the
+  head's NMS), its boxes equal
   to the plain route's, at most 32 host synchronisations (the labelling's
   convergence checks);
 - ``prediction_batch_fast`` at B = 64 with a BGR next frame, its
@@ -171,9 +172,10 @@ one chairs step), its checkpoint restored on one device.
 
 Last, each kernel is timed at its path's level-0 shapes beside its bound
 and its plain version (K7 also at radius 8; K8 at the stream's shapes,
-its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound; K1 also at the
-deep batch's RGB shapes; K9 at the YOLO post step's first launch in
-``run_detection``, with its chain bound and ``torchvision.ops.nms`` where
+its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound and the bound of
+the substeps its longest cell ran; K1 also at the deep batch's RGB shapes;
+K9 at the YOLO post step's first launch in ``run_detection``, with its
+chain bound, its walk's reckoning and ``torchvision.ops.nms`` where
 that imports).
 
 Each phase prints one JSON line.  The line before the last is the card's
@@ -324,22 +326,33 @@ AD_LAUNCHES = {
     "pallas": {"crop_windows": 2, "update_matrices": 12, "box_solve": 12},
 }
 # the tracking and prediction paths: batch, and the labelling's most host
-# synchronisations a call (one every 8 of at most 256 sweeps)
+# synchronisations a call (one every 8 of at most 256 sweeps); the tracking
+# head's NMS is K9, once a call
 B_HEADS = 64
 MAX_TRACKING_SYNCS = 32
+TRACKING_LAUNCHES = {**EXPECTED_LAUNCHES, "nms": 1}
 # each timed call: median of TIME_N after TIME_WARM warm-up calls
 TIME_WARM, TIME_N = 3, 10
 # K8 against its plain version, n_substeps 1000: name → (grid, pairs,
-# FrameSimConfig changes).  6×8 is memsize 80 at 480×640, 12×16 memsize 40;
-# th1 = 6 puts |Δ| in (5.5, 6] in the modulation's dead zone; alpha 2 and
-# 1.5 raise the drive by powf
+# FrameSimConfig changes, inputs).  6×8 is memsize 80 at 480×640, 12×16
+# memsize 40, 24×32 (768 cells, above 4 × 132 SMs: lanes packed) memsize
+# 20; th1 = 6 puts |Δ| in (5.5, 6] in the modulation's dead zone; alpha 2
+# and 1.5 raise the drive by powf.  Inputs: "random"; "mixed", a third of
+# the cells static from w0 0.01 (they clamp to 0 early in the first pair),
+# a third stepped by 12/256 a frame from w0 0.9999 (they clamp to 1 early),
+# a third random (they run whole pairs); "exact_w0", w0 at exact 0, 1 and
+# -0.0 in some cells; "nan_w0", a NaN w0 cell (compared by bits)
 K8_SUBSTEPS = 1000
 K8_CASES = {
-    "grid_6x8": ((6, 8), 3, {}),
-    "grid_12x16": ((12, 16), 3, {}),
-    "ragged_7x13": ((7, 13), 2, {}),
-    "dead_zone_th1_6": ((6, 8), 2, {"th1": 6.0}),
-    "alpha_2_1.5": ((6, 8), 2, {"alpha_off": 2.0, "alpha_on": 1.5}),
+    "grid_6x8": ((6, 8), 3, {}, "random"),
+    "grid_12x16": ((12, 16), 3, {}, "random"),
+    "ragged_7x13": ((7, 13), 2, {}, "random"),
+    "dead_zone_th1_6": ((6, 8), 2, {"th1": 6.0}, "random"),
+    "alpha_2_1.5": ((6, 8), 2, {"alpha_off": 2.0, "alpha_on": 1.5}, "random"),
+    "mixed_lanes": ((6, 8), 3, {}, "mixed"),
+    "w0_0_1_neg0": ((6, 8), 2, {}, "exact_w0"),
+    "w0_nan": ((6, 8), 2, {}, "nan_w0"),
+    "packed_24x32": ((24, 32), 2, {}, "random"),
 }
 # the stream: scripts/bench_stream.py's workload, 129 frames (128 pairs) a
 # call, the grasp main path's kernels and one K8 launch
@@ -479,7 +492,12 @@ PP_M = 2
 # plus_one).  YOLO's 300 candidates at B = 1 and 8, N = 1, no and every
 # candidate, equal scores, boxes with the class offset (up to 79 · 7680
 # px), inclusive widths, zero-area boxes (0/0 IoU), NaN scores and
-# coordinates, a row wider than a block (1,500 > 1,024 threads)
+# coordinates, valid -inf scores (the kernel's greedy loop), N = 1024,
+# K9_GLOBAL_N (the first N whose suppression mask leaves shared memory on
+# the H100, check_k9 checks it), a row wider than a block (1,500 > 1,024
+# threads, its mask in the scratch too) and one whose keys and boxes leave
+# shared memory too (8,192: the whole arena in the scratch)
+K9_GLOBAL_N = 1227
 K9_CASES = {
     "yolo_n300_b1": (1, 300, "random", False),
     "yolo_n300_b8": (8, 300, "random", False),
@@ -491,7 +509,11 @@ K9_CASES = {
     "plus_one": (2, 300, "random", True),
     "zero_area": (2, 300, "zero_area", False),
     "nan": (2, 300, "nan", False),
+    "neg_inf": (2, 300, "neg_inf", False),
+    "n1024": (2, 1024, "random", False),
+    "n_global_mask": (2, K9_GLOBAL_N, "random", False),
     "n1500_b3": (3, 1500, "random", False),
+    "n8192_arena_global": (1, 8192, "random", False),
 }
 K9_IOU = 0.45
 # one dependent step of K9 as reckoned for its chain bound: two 5-level warp
@@ -499,6 +521,12 @@ K9_IOU = 0.45
 # the pick's IoU (~25 dependent float32 operations at 4 cycles, a division
 # at ~40), at the H100 SXM's 1.98 GHz boost clock
 K9_STEP_NS = (10 * 30 + 3 * 40 + 25 * 4 + 40) / 1.98
+# the redesign's walk as reckoned: a step (a kept box, or the visit of a
+# 32-bit word) is a shared load (~30 cycles), the mask's and and not, and a
+# find-first-set (~4 cycles each), at 1.98 GHz; the mask's IoUs are ~23
+# float32 operations each, a row's on one SM
+K9_WALK_STEP_NS = (30 + 3 * 4) / 1.98
+K9_IOU_OPS = 23
 ROOT = pathlib.Path(__file__).resolve().parent
 # one dependent step of K8 as reckoned for its chain bound: 8 float32
 # operations at 4 cycles and the two special-function operations (log2,
@@ -715,23 +743,52 @@ def k7_case(name: str, dev):
     return (lambda: tff.update_matrices(*args)), (lambda: tff._update_matrices_plain(*args))
 
 
-def k8_case(name: str, dev):
-    """K8_CASES[name] as a kernel call and its plain version's call, each
-    giving (w_final, mem_gray, states): compressed frames in [0, 1] whose
-    |Δ|·256 between pairs spans [0, 12] (both branches of the |Δ| transfer),
-    a random initial state."""
-    (gh, gw), pairs, changes = K8_CASES[name]
+def k8_inputs(name: str):
+    """K8_CASES[name]'s compressed frames ``[pairs + 1, gh, gw]`` in [0, 1]
+    and initial state ``[gh, gw]`` as float32 numpy arrays, and its
+    FrameSimConfig: frames whose |Δ|·256 between pairs spans [0, 12] (both
+    branches of the |Δ| transfer), a random initial state, edited as the
+    case's inputs say."""
+    (gh, gw), pairs, changes, kind = K8_CASES[name]
     rng = np.random.default_rng(gh * gw + pairs)
     params = {k: v for k, v in changes.items() if k.startswith("alpha")}
     sim = tfs.FrameSimConfig(m=MEMSIZE, n=MEMSIZE, n_substeps=K8_SUBSTEPS,
                              params=dataclasses.replace(DEFAULT_PARAMS, **params),
                              **{k: v for k, v in changes.items() if k not in params})
     steps = rng.uniform(0, 12, (pairs, gh, gw)) * rng.choice([-1, 1], (pairs, gh, gw))
-    frames = np.concatenate([rng.uniform(0.1, 0.9, (1, gh, gw)), steps / 256]).cumsum(0)
-    frames = torch.from_numpy(np.clip(frames, 0, 1).astype(np.float32)).to(dev)
-    w0 = torch.from_numpy(rng.random((gh, gw)).astype(np.float32)).to(dev)
+    first = rng.uniform(0.1, 0.9, (1, gh, gw))
+    w0 = rng.random((gh, gw))
+    if kind == "mixed":
+        third = np.arange(gh * gw).reshape(gh, gw) % 3
+        steps[:, third == 0] = 0.0
+        steps[:, third == 1] = 12.0 * (-1.0) ** np.arange(pairs)[:, None]
+        w0[third == 0], w0[third == 1] = 0.01, 0.9999
+    frames = np.concatenate([first, steps / 256]).cumsum(0)
+    w0 = w0.astype(np.float32)
+    if kind == "exact_w0":
+        w0.flat[0::5], w0.flat[1::5], w0.flat[2::5] = 0.0, 1.0, -0.0
+    elif kind == "nan_w0":
+        w0[1, 2] = np.nan
+    return np.clip(frames, 0, 1).astype(np.float32), w0, sim
+
+
+def k8_case(name: str, dev):
+    """K8_CASES[name] as a kernel call and its plain version's call, each
+    giving (w_final, mem_gray, states)."""
+    frames, w0, sim = k8_inputs(name)
+    frames, w0 = torch.from_numpy(frames).to(dev), torch.from_numpy(w0).to(dev)
     return (lambda: tfs.scan_device(frames, sim, w0, keep_states=True),
             lambda: tfs.scan_device_plain(frames, sim, w0, keep_states=True))
+
+
+def bits_equal(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """Equal bit for bit: float32 compared as its bits (NaN equal to the
+    same NaN, -0.0 not to 0.0), anything else by value."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return False
+    if got.dtype == torch.float32:
+        return torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    return torch.equal(got, ref)
 
 
 def flow_check(got, ref, name: str, tol: float = 1e-5) -> float:
@@ -751,7 +808,8 @@ def plain_route():
              "fused_box_update": (tff, tff._fused_box_update_plain),
              "update_matrices": (tff, tff._update_matrices_plain),
              "box_solve": (tff, tff._box_solve_plain),
-             "scan_device": (tstream, tfs.scan_device_plain)}
+             "scan_device": (tstream, tfs.scan_device_plain),
+             "nms_batch": (tcomp, tcomp.nms)}
     saved = {name: getattr(mod, name) for name, (mod, _) in names.items()}
     for name, (mod, plain) in names.items():
         setattr(mod, name, plain)
@@ -990,9 +1048,9 @@ def against_plain(call, out: dict, keys) -> None:
 
 def drive_tracking(dev) -> dict:
     """``tracking_batch_fast`` on the main path's workload at B_HEADS in
-    'fused': exactly the main path's kernels, the plain route's boxes, at
-    most MAX_TRACKING_SYNCS host synchronisations, a box found on every
-    sample; then timed."""
+    'fused': exactly TRACKING_LAUNCHES (the main path's kernels and K9 for
+    the head's NMS), the plain route's boxes, at most MAX_TRACKING_SYNCS
+    host synchronisations, a box found on every sample; then timed."""
     cfg = bench_cfg()
     mem, prev, nxt = bench_inputs(B_HEADS, 0, dev)
 
@@ -1000,8 +1058,8 @@ def drive_tracking(dev) -> dict:
         return tracking_batch_fast(m, p, n, cfg, kernel_mode="fused")
 
     launches, out = launched_by(call)
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"tracking: launches {launches} != {EXPECTED_LAUNCHES}")
+    if launches != TRACKING_LAUNCHES:
+        raise AssertionError(f"tracking: launches {launches} != {TRACKING_LAUNCHES}")
     against_plain(call, out, ("boxes", "valid", "areas", "box", "any_active"))
     n_valid = out["valid"].sum(dim=1)
     if not (out["any_active"].all() and (n_valid > 0).all()):
@@ -1021,7 +1079,7 @@ def drive_tracking(dev) -> dict:
     ms, samples = median_ms(call, variants)
     emit({"phase": "tracking_path_time", "batch": B_HEADS, "ms_per_batch": ms,
           "fps": B_HEADS / ms * 1e3, "samples_ms": samples, "card": smi_line()})
-    emit(device_trace(call, ms, B_HEADS, EXPECTED_LAUNCHES, path="tracking"))
+    emit(device_trace(call, ms, B_HEADS, TRACKING_LAUNCHES, path="tracking"))
     return launches
 
 
@@ -1135,16 +1193,32 @@ def drive_dual(dev, cfg=None, mem=None, phase: str = "dual_path") -> None:
 
 def check_k8(errs: dict, dev) -> None:
     """K8 against its plain version at every K8_CASES case: the final
-    state, the gray maps and the state after each pair, required equal."""
-    err = 0.0
+    state, the gray maps and the state after each pair, required equal bit
+    for bit; with the substeps each cell ran."""
+    ran = {}
     for name in K8_CASES:
         kernel, plain = k8_case(name, dev)
         for part, got, ref in zip(("w_final", "mem_gray", "states"), kernel(), plain()):
-            err = max(err, exact_check(got, ref, f"K8 {name} {part}"))
-    errs["device_scan"] = err
+            if not bits_equal(got, ref):
+                raise AssertionError(f"K8 {name} {part} differs from its plain version")
+        frames, w0, sim = k8_inputs(name)
+        w0 = torch.from_numpy(w0).to(dev)
+        steps = torch.empty(w0.numel(), dtype=torch.int32, device=dev)
+        tfs._scan_device_cuda(torch.from_numpy(frames).to(dev), sim, w0, False, steps)
+        ran[name] = [int(steps.min()), int(steps.max())]
+    # K8's main-path power against powf on every w in [0, 1], for each (s, b)
+    # of DEFAULT_PARAMS and K8_CASES
+    params = [DEFAULT_PARAMS] + [k8_inputs(name)[2].params for name in K8_CASES]
+    pairs = sorted({pair for p in params for pair in ((p.s_off, p.b_off), (p.s_on, p.b_on))})
+    mismatches = dict(zip((f"s={s}, b={b}" for s, b in pairs),
+                          tfs.power_mismatches(pairs, dev)))
+    errs["device_scan"] = 0.0
     emit({"phase": "check", "kernel": "device_scan", "cases": list(K8_CASES),
           "n_substeps": K8_SUBSTEPS, "outputs": ["w_final", "mem_gray", "states"],
-          "max_abs_err": err, "tolerance": 0})
+          "compared": "bits", "substeps_min_max_cell": ran,
+          "power_mismatches_w_0_to_1": mismatches, "max_abs_err": 0.0, "tolerance": 0})
+    if any(mismatches.values()):
+        raise AssertionError(f"K8's main-path power differs from powf: {mismatches}")
 
 
 def k9_inputs(name: str, dev):
@@ -1178,6 +1252,9 @@ def k9_inputs(name: str, dev):
         scores[:, 5::37] = np.nan
         boxes[:, 11::41, 1] = np.nan
         boxes[:, 17::43, 2] = np.nan
+    elif kind == "neg_inf":  # valid -inf scores behind dead boxes of lower index
+        scores[:, 7::19] = -np.inf
+        valid[:, 7::19] = True
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     return t(boxes), t(scores), t(valid), plus_one
 
@@ -1192,7 +1269,15 @@ def k9_case(name: str, dev):
 
 def check_k9(errs: dict, dev) -> None:
     """K9 against its plain version at every K9_CASES case: the keep masks
-    required equal."""
+    required equal.  K9_GLOBAL_N must be past the shared-memory mask and 32
+    boxes fewer within it, and at N = 8,192 the whole arena in the
+    scratch."""
+    scratch = {n: tcomp.nms_scratch_bytes(1, n) for n in (K9_GLOBAL_N - 32, K9_GLOBAL_N, 8192)}
+    if scratch[K9_GLOBAL_N - 32] or not scratch[K9_GLOBAL_N]:
+        raise AssertionError(f"K9's mask leaves shared memory elsewhere than K9_GLOBAL_N: "
+                             f"scratch bytes {scratch}")
+    if scratch[8192] <= 4 * (8192 // 32) * 8192:  # more than the mask: the whole arena
+        raise AssertionError(f"K9's arena at N = 8192 is not all in the scratch: {scratch}")
     kept = {}
     for name in K9_CASES:
         kernel, plain = k9_case(name, dev)
@@ -1202,7 +1287,8 @@ def check_k9(errs: dict, dev) -> None:
         kept[name] = int(ref.sum())
     errs["nms"] = 0
     emit({"phase": "check", "kernel": "nms", "cases": list(K9_CASES), "kept": kept,
-          "iou_thresh": K9_IOU, "max_abs_err": 0, "tolerance": 0})
+          "scratch_bytes_b1": scratch, "iou_thresh": K9_IOU, "max_abs_err": 0,
+          "tolerance": 0})
 
 
 def stream_frames(salt: int, dev) -> torch.Tensor:
@@ -3305,12 +3391,23 @@ def drive_parallel(dev, samples) -> None:
 def k9_time(launches: dict, errs: dict, args) -> dict:
     """K9's line at the YOLO post step's shapes (``args``: the inputs of its
     first launch in run_detection): its plain loop, ``torchvision.ops.nms``
-    where it imports, the bytes bound and the chain bound of the steps this
-    input takes (one a kept box, then the step that finds nothing alive)."""
+    where it imports, the bytes bound, the greedy loop's chain bound of the
+    steps this input takes (one a kept box, then the step that finds nothing
+    alive) and the walk's reckoning.  The events' ``ms`` holds the wrapper's
+    host work too: ``nsof_tpu_torch/time_trees.py`` gives the kernel's device
+    time alone."""
     boxes, scores, valid, iou, _ = args
     keep = tcomp.nms_batch(*args)
     steps = int(keep.sum(dim=1).max()) + 1
     b, n = scores.shape
+    # the redesign's reckoning: each row's walk (a step a kept box and a
+    # visit a word) and its mask's IoUs (one SM a row)
+    nv = valid.sum(dim=1)
+    walk = int((keep.sum(dim=1) + (nv + 31) // 32).max())
+    mask_ops = int((nv * (nv - 1) // 2).sum()) * K9_IOU_OPS
+    sms = torch.cuda.get_device_properties(boxes.device).multi_processor_count
+    walk_ms = walk * K9_WALK_STEP_NS * 1e-6
+    mask_ms = mask_ops / (FP32_FLOPS * min(b, sms) / sms) * 1e3
     try:
         import torchvision
         lib_fn = (lambda: torchvision.ops.nms(boxes[0][valid[0]], scores[0][valid[0]], iou))
@@ -3326,7 +3423,13 @@ def k9_time(launches: dict, errs: dict, args) -> dict:
                  chain_bound_ms=steps * K9_STEP_NS * 1e-6,
                  chain_bound_by="steps dependent steps, each reckoned at "
                                 f"{K9_STEP_NS:.1f} ns (two warp shuffle trees, three "
-                                "barriers, one IoU, 1.98 GHz)")
+                                "barriers, one IoU, 1.98 GHz)",
+                 walk_steps=walk, mask_ious=mask_ops // K9_IOU_OPS,
+                 walk_bound_ms=walk_ms + mask_ms,
+                 walk_bound_by=f"walk_steps (kept boxes + word visits) at "
+                               f"{K9_WALK_STEP_NS:.1f} ns ({walk_ms:.6f} ms) + the mask's "
+                               f"{K9_IOU_OPS} float32 operations an IoU at the float32 rate "
+                               f"of min(B, SMs) SMs ({mask_ms:.6f} ms)")
     return entries[0]
 
 
@@ -3607,18 +3710,28 @@ def k8_time(launches: dict, errs: dict, dev) -> dict:
     pairs, cells = comp.shape[0] - 1, w0.numel()
     steps = pairs * sim.n_substeps
     few = dataclasses.replace(sim, n_substeps=K8_PLAIN_SUBSTEPS)
+    # the substeps each cell runs before its fixed-point exits
+    ran = torch.empty(cells, dtype=torch.int32, device=dev)
+    tfs._scan_device_cuda(comp, sim, w0, False, ran)
+    longest = int(ran.max())
     # a substep: w·s, 1 − ·, the power, two products, the add and the clamp's
     # two comparisons; a pair adds the transfer, the modulation and the map
     entry("device_scan", lambda: tfs.scan_device(comp, sim, w0),
           lambda: tfs.scan_device_plain(comp, few, w0), None,
-          comp.numel() * 4 + cells * 4 * 2 + pairs * cells, cells * (steps * 8 + pairs * 16),
+          comp.numel() * 4 + cells * 4 * 2 + pairs * cells,
+          int(ran.sum()) * 8 + cells * pairs * 16,
           1, plain_iters=1, plain_n_substeps=K8_PLAIN_SUBSTEPS,
           ms_at_plain_n_substeps=time_ms(lambda: tfs.scan_device(comp, few, w0)),
           n_substeps=sim.n_substeps, pairs=pairs, cells=cells,
           chain_bound_ms=steps * K8_STEP_NS * 1e-6,
           chain_bound_by="pairs × n_substeps dependent steps, each reckoned at "
                          f"{K8_STEP_NS:.1f} ns (8 float32 operations at 4 cycles and "
-                         "log2 and exp2 at ~18 cycles, 1.98 GHz)")
+                         "log2 and exp2 at ~18 cycles, 1.98 GHz)",
+          substeps_longest_cell=longest, substeps_mean_cell=float(ran.float().mean()),
+          chain_bound_run_ms=longest * K8_STEP_NS * 1e-6,
+          chain_bound_run_by="the longest cell's substeps at the same "
+                             f"{K8_STEP_NS:.1f} ns a step")
+    entries[0]["ns_per_step_longest_cell"] = entries[0]["ms"] * 1e6 / max(longest, 1)
     return entries[0]
 
 

@@ -98,7 +98,10 @@ def scan_device_plain(frames01: torch.Tensor, sim: FrameSimConfig, w0: torch.Ten
                          torch.zeros(shape, dtype=torch.float32, device=w.device))
 
 
-def _scan_device_cuda(frames01, sim, w0, keep_states):
+def _scan_device_cuda(frames01, sim, w0, keep_states, substeps=None):
+    """K8's launch.  ``substeps``, an int32 CUDA tensor of ``w0.numel()``
+    elements or None (the main path), receives the substeps each cell ran
+    over all pairs: K8 ends a pair's substeps at the state's fixed point."""
     if frames01.dtype != torch.float32 or w0.dtype != torch.float32:
         raise ValueError("scan_device: frames and w0 must be float32")
     t = frames01.shape[0]
@@ -107,6 +110,11 @@ def _scan_device_cuda(frames01, sim, w0, keep_states):
                          f"{tuple(w0.shape)} do not match")
     if w0.device != frames01.device:
         raise ValueError("scan_device: frames and w0 on different devices")
+    if substeps is not None and (substeps.dtype != torch.int32 or substeps.device != w0.device
+                                 or substeps.numel() != w0.numel()
+                                 or not substeps.is_contiguous()):
+        raise ValueError("scan_device: substeps must be a contiguous int32 tensor of "
+                         "w0's size on its device")
     frames01 = frames01.contiguous()
     w0 = w0.contiguous()
     n_cells = w0.numel()
@@ -116,17 +124,33 @@ def _scan_device_cuda(frames01, sim, w0, keep_states):
     states = (torch.empty((t - 1,) + tuple(w0.shape), dtype=torch.float32, device=dev)
               if keep_states else None)
     p = sim.params
-    fn = _build.launcher("device_scan", 5, 3, n_float=14)
+    fn = _build.launcher("device_scan", 6, 3, n_float=14)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(fn(
         frames01.data_ptr(), w0.data_ptr(), w_final.data_ptr(), mem_gray.data_ptr(),
         states.data_ptr() if keep_states else None,
+        substeps.data_ptr() if substeps is not None else None,
         t - 1, n_cells, sim.n_substeps,
         sim.th1, p.v_off, p.v_on, p.k_off, p.k_on, p.s_off, p.s_on, p.b_off, p.b_on,
         p.alpha_off, p.alpha_on, p.r_on, -p.lam, sim.dt / sim.n_substeps, stream,
     ), "device_scan")
     _build.LAUNCHES["device_scan"] += 1
     return w_final, mem_gray, states
+
+
+def power_mismatches(pairs, device=None) -> list[int]:
+    """K8's proof of its main-path power: for each ``(s, b)`` of ``pairs``,
+    the count of float32 w in [0, 1] (every bit pattern from +0 to 1) for
+    which that power of ``1 − w·s`` differs from ``powf`` in any bit, in
+    one launch on the card (see ``csrc/device_scan.cu``)."""
+    dev = _build.resolve_device(device)
+    s = torch.tensor([p[0] for p in pairs], dtype=torch.float32, device=dev)
+    b = torch.tensor([p[1] for p in pairs], dtype=torch.float32, device=dev)
+    out = torch.zeros(len(pairs), dtype=torch.int64, device=dev)
+    fn = _build.launcher("device_scan", 3, 1, symbol="nsof_device_scan_pow_check")
+    _build.check(fn(s.data_ptr(), b.data_ptr(), out.data_ptr(), len(pairs),
+                    torch.cuda.current_stream(dev).cuda_stream), "device_scan_pow_check")
+    return out.tolist()
 
 
 def scan_device(frames01: torch.Tensor, sim: FrameSimConfig, w0: torch.Tensor,

@@ -33,6 +33,7 @@ on the card (the YOLO post step's).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -283,13 +284,32 @@ def _nms_cuda(boxes, scores, valid, iou_thresh, plus_one):
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
     if b == 0 or n == 0:
         return keep
-    alive = torch.empty((b, n), dtype=torch.uint8, device=boxes.device)  # the kernel's flags
+    # the rows' arenas beyond shared memory (none up to N ≈ 1,200 on the H100)
+    nbytes = nms_scratch_bytes(b, n, boxes.device.index)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=boxes.device) if nbytes else None
     fn = _build.launcher("nms", 5, 3, n_float=1)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     _build.check(fn(boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                    alive.data_ptr(), b, n, int(plus_one), iou_thresh, stream), "nms")
+                    scratch.data_ptr() if nbytes else None, b, n, int(plus_one), iou_thresh,
+                    stream), "nms")
     _build.LAUNCHES["nms"] += 1
     return keep
+
+
+@functools.lru_cache(maxsize=256)
+def nms_scratch_bytes(b: int, n: int, device_index: int | None = None) -> int:
+    """The scratch K9 needs for ``b`` rows of ``n`` boxes on CUDA device
+    ``device_index`` (default the current one): the part of each row's
+    arena (keys, boxes, flags and the suppression mask) that does not fit in
+    shared memory."""
+    fn = _build.load("nms").nsof_nms_scratch_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    with torch.cuda.device(device_index):
+        nbytes = fn(b, n)
+    if nbytes < 0:
+        raise RuntimeError("nms_batch: cannot read the device's shared memory size")
+    return nbytes
 
 
 def nms_batch(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,

@@ -7,8 +7,8 @@ boxes of area ≥ 500 → NMS at IoU 0.2 scored by area
 (process_flow_region_tracking, optical_flow_ob.py:321-379).  Boxes live in
 ``max_boxes`` static slots with a validity mask.
 
-Entry points: :func:`tracking_batch_fast` (the throughput path: K1 crops
-and the fast Farnebäck), :func:`tracking_step` and
+Entry points: :func:`tracking_batch_fast` (the throughput path: K1 crops,
+the fast Farnebäck and the head's NMS on K9), :func:`tracking_step` and
 :func:`tracking_step_full` (the exact path, no kernel) and
 :func:`tracking_stages` (the dual-path replay stages).  The labelling of
 the head is :func:`~nsof_tpu_torch.ops.components.label_components_sweep`,
@@ -57,10 +57,13 @@ def flow_gray_window(flow_win: torch.Tensor, inbox: torch.Tensor) -> torch.Tenso
 
 
 def tracking_head_window(flow_win: torch.Tensor, inbox: torch.Tensor, origin_yx,
-                         cfg: PipelineConfig) -> dict:
+                         cfg: PipelineConfig, nms_kernel: bool = False) -> dict:
     """Gray → close → threshold → components → area filter → NMS on
     windows ``[B, h, w, 2]`` whose top-left pixels sit at ``origin_yx``
-    (``[B]`` rows, ``[B]`` columns).
+    (``[B]`` rows, ``[B]`` columns).  With ``nms_kernel`` the NMS is
+    :func:`~nsof_tpu_torch.ops.components.nms_batch` (kernel K9 on the
+    card, one launch, the same keep mask bit for bit), else the plain loop
+    (the exact path, which launches no kernel).
 
     Returns ``boxes`` [B, max_boxes, 4] float32 (x1, y1, x2, y2) in image
     coordinates, ``valid`` [B, max_boxes] and ``areas`` [B, max_boxes]."""
@@ -80,7 +83,7 @@ def tracking_head_window(flow_win: torch.Tensor, inbox: torch.Tensor, origin_yx,
     ox = origin_yx[1].float()[:, None]
     x, y, w, h = boxes.unbind(-1)
     xyxy = torch.stack([x + ox, y + oy, x + w + ox, y + h + oy], dim=-1)
-    keep = comp.nms(xyxy, areas, valid, cfg.head.nms_iou)
+    keep = (comp.nms_batch if nms_kernel else comp.nms)(xyxy, areas, valid, cfg.head.nms_iou)
     return {"boxes": xyxy, "valid": keep & valid, "areas": areas}
 
 
@@ -96,7 +99,7 @@ def tracking_batch_fast(mem_u8, prev_gray, next_gray, cfg: PipelineConfig,
                         device=None) -> dict:
     """Throughput tracking: the batched ROI gate, K1 crops, the fast
     Farnebäck in ``kernel_mode`` (as :func:`~nsof_tpu_torch.pipelines.
-    segmentation.seg_batch_fast` runs it) and the head.
+    segmentation.seg_batch_fast` runs it) and the head, its NMS on K9.
 
     ``[B, gh, gw]`` uint8 state maps and ``[B, H, W]`` uint8 frames →
     ``boxes`` [B, max_boxes, 4], ``valid``, ``areas``, ``box`` [B, 4] and
@@ -110,7 +113,8 @@ def tracking_batch_fast(mem_u8, prev_gray, next_gray, cfg: PipelineConfig,
     flow_win, inbox = fast_window_flow(
         prev, nxt, roi, cfg, cfg.warp_radius if warp_radius is None else warp_radius,
         kernel_mode)
-    return _tracking_out(tracking_head_window(flow_win, inbox, roi["origin"], cfg), roi)
+    return _tracking_out(tracking_head_window(flow_win, inbox, roi["origin"], cfg,
+                                              nms_kernel=True), roi)
 
 
 def tracking_step(mem_u8, prev_gray, next_gray, cfg: PipelineConfig,

@@ -2,7 +2,7 @@
 directories, at the YOLO post step's 300 candidates (B = 1 and 8), and
 holds each build's keep mask against the plain ``nms`` (bit for bit).
 
-    python -m nsof_tpu_torch.time_k9 [--csrc DIR [DIR ...]]
+    python -m nsof_tpu_torch.time_k9 [--csrc DIR [DIR ...]] [--phases]
 
 Two inputs a batch size, seeded: boxes clustered on eight centres of a
 640-px square, uniform scores, the candidates scoring above 0.3
@@ -12,7 +12,15 @@ step a kept box).  The builds are timed in the order A, B, …, B, A so
 that a drift of the card's clock shows.  Each build goes to
 ``build/time_k9/``.  Prints one JSON line per (build, input, round), with
 the card's name and power limit.  Needs one CUDA device; every source must
-have ``nsof_nms``'s signature.
+have ``nsof_nms``'s signature.  Its scratch pointer gets ``[B, N]`` bytes,
+the alive flags of the greedy design; the rank → mask → walk design needs
+no scratch at N = 300.
+
+``--phases`` times the rank → mask → walk design of the first directory
+phase by phase instead: a copy of its ``nms.cu`` returns before the phase
+that PHASES names (a ``__device__`` flag set between runs), and each stop's
+mean device time over 50 launches (torch.profiler) is printed; the time up
+to a phase less the time up to the one before is that phase's.
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ from nsof_tpu_torch import _build
 from nsof_tpu_torch.ops import components as tcomp
 
 N, IOU = 300, 0.45
+# where the --phases copy may return: the kernel's comment opening each phase
+PHASES = ("  // 1. order:", "  // 2. the suppression mask", "  // 3. the walk, one warp",
+          "  // the keep mask in the input's order")
 
 
 def build(csrc):
@@ -45,6 +56,42 @@ def build(csrc):
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def phases(csrc: pathlib.Path, card: str) -> None:
+    """Each phase's device time at the four inputs (see the module's doc)."""
+    from nsof_tpu_torch.time_trees import device_ms
+
+    src = (csrc / "nms.cu").read_text()
+    for k, anchor in enumerate(PHASES, 1):
+        if src.count(anchor) != 1:
+            raise SystemExit(f"{csrc / 'nms.cu'} has no single {anchor.strip()!r}")
+        src = src.replace(anchor, f"  if (stop_before == {k}) return;\n" + anchor)
+    src = src.replace("namespace {\n", "namespace {\n__device__ int stop_before;\n", 1)
+    src += ('\nextern "C" int nsof_nms_stop_before(int k) {\n'
+            '  return (int)cudaMemcpyToSymbol(stop_before, &k, sizeof k);\n}\n')
+    out = _build.BUILD_DIR.parent / "time_k9" / ("phases_" + hashlib.sha256(
+        src.encode()).hexdigest()[:12])
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "nms.cu").write_text(src)
+    _build.build_all(["nms"], out)
+    lib = ctypes.CDLL(str(_build._lib_path("nms", out)))
+    fn = lib.nsof_nms
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    dev = torch.device("cuda")
+    for b in (1, 8):
+        for kind in ("clustered", "class_offset"):
+            boxes, scores, valid = inputs(b, kind, dev)
+            keep = torch.empty_like(valid)
+            for stop in (1, 2, 3, 4, 0):
+                _build.check(lib.nsof_nms_stop_before(stop), "nms")
+                ms = device_ms(lambda: fn(boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(),
+                                          keep.data_ptr(), None, b, N, 0, IOU,
+                                          torch.cuda.current_stream().cuda_stream),
+                               "nms_kernel", n=50)
+                print(json.dumps({"csrc": str(csrc), "batch": b, "n": N, "input": kind,
+                                  "stop_before": PHASES[stop - 1].strip() if stop else "end",
+                                  "device_ms": ms, "card": card}), flush=True)
 
 
 def inputs(b, kind, dev):
@@ -77,11 +124,16 @@ def time_ms(fn, iters=200, warm=20):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=pathlib.Path, nargs="+", default=[_build.CSRC])
+    ap.add_argument("--phases", action="store_true",
+                    help="time the first directory's kernel phase by phase")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
+    if args.phases:
+        phases(args.csrc[0].resolve(), card)
+        return
     fns = [build(c.resolve()) for c in args.csrc]
     order = list(range(len(fns))) + list(reversed(range(len(fns))))
     for b in (1, 8):

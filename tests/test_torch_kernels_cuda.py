@@ -15,11 +15,16 @@ and widest (63, 7) (winsize, radius), on a canvas with slack rows and
 columns.  K7: radius 1, 3, 8 and 37 on a 97×131 level, B = 2 and 1, with
 flows at integers, ±r and beyond, ±0, tiny values and one ulp either side
 of each integer.  K8 (the device scan): the 6×8, 12×16 and a ragged 7×13
-grid, the modulation's dead zone and powf drives, at n_substeps 1000 (the
-final state, the gray maps and the per-pair states).  K9 (batched NMS): YOLO's
-300 candidates at B = 1 and 8, N = 1, no and every candidate, equal scores,
-the class offset, inclusive widths, zero-area boxes, NaN inputs, a row wider
-than a block and one longer than the shared alive flags (the keep masks).
+grid, the modulation's dead zone and powf drives, mixed lanes (cells that
+clamp to 0 or 1 early beside cells that run whole pairs), w0 at exact 0, 1
+and -0.0, a NaN w0 and a 24×32 grid (lanes packed), at n_substeps 1000 (the
+final state, the gray maps and the per-pair states, compared by their
+bits).  K9 (batched NMS): YOLO's 300 candidates at B = 1 and 8, N = 1, no
+and every candidate, equal scores, the class offset, inclusive widths,
+zero-area boxes, NaN inputs, valid -inf scores (the kernel's greedy loop),
+N = 1024, the first N whose suppression mask leaves shared memory, a row
+wider than a block and one whose whole arena leaves shared memory (N =
+8,192) (the keep masks).
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (the card's machine has no jax, which
@@ -31,7 +36,7 @@ import pytest
 import torch
 
 from chip_smoke import (K1_CASES, K2_CASES, K3_CASES, K4_CASES, K7_CASES, K8_CASES, K9_CASES,
-                        k2_case, k3_case, k7_case, k8_case, k9_case)
+                        bits_equal, k2_case, k3_case, k7_case, k8_case, k9_case)
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 
@@ -139,7 +144,7 @@ def test_device_scan_kernel_matches_plain(cuda_device, name):
     kernel, plain = k8_case(name, cuda_device)
     for got, ref in zip(kernel(), plain()):
         assert got.dtype == ref.dtype and got.shape == ref.shape
-        assert torch.equal(got, ref)
+        assert bits_equal(got, ref)
 
 
 @pytest.mark.cuda
