@@ -75,6 +75,7 @@ from nsof_tpu_torch.ops.farneback import (
     _tap_sum,
     border_scale,
 )
+from nsof_tpu_torch.utils.timing import span
 
 CANVAS = 32  # canvas granularity of the JAX route's tile grid
 R1_MARGIN = (8, 16)  # r1's margin ring, rows and columns
@@ -664,8 +665,9 @@ def _farneback_fast_fused(img0, img1, params: FarnebackParams, radius: int,
             sz = max(2 * int(np.ceil(3.0 * s_blur)) + 1, 3)
         gk = _gaussian_blur_kernel(sz, s_blur)
         nb = sz // 2
-        cur0 = _resize_hwb(_blur_valid(_reflect_pad(cur0, nb), gk), hk_, wk_)
-        cur1 = _resize_hwb(_blur_valid(_reflect_pad(cur1, nb), gk), hk_, wk_)
+        with span("nsof.farneback.pyramid"):
+            cur0 = _resize_hwb(_blur_valid(_reflect_pad(cur0, nb), gk), hk_, wk_)
+            cur1 = _resize_hwb(_blur_valid(_reflect_pad(cur1, nb), gk), hk_, wk_)
         lvl_imgs[k] = (cur0, cur1)
 
     dx = dy = None
@@ -683,16 +685,19 @@ def _farneback_fast_fused(img0, img1, params: FarnebackParams, radius: int,
         else:
             i0, i1 = lvl_imgs[k]
             blur = None
-        r0 = poly_expansion(i0, params.poly_n, params.poly_sigma, hp, wp, blur)
-        r1 = poly_expansion(i1, params.poly_n, params.poly_sigma, hp, wp, blur,
-                            margin=R1_MARGIN)
-        dx, dy = _upscale_flow(dx, dy, b, hk, wk, params.pyr_scale, img0.device)
-        bsc = border_scale(hk, wk, str(img0.device))
-        m = update_matrices_sep(dx, dy, r0, r1, bsc, radius, out_dtype=m_dtype)
-        for _ in range(params.iterations - 1):
-            m = fused_box_update(m, r0, r1, bsc, params.winsize, radius,
-                                 "matrices")
-        fl = fused_box_update(m, r0, r1, bsc, params.winsize, radius, "flow")
+        with span("nsof.farneback.pyramid"):
+            dx, dy = _upscale_flow(dx, dy, b, hk, wk, params.pyr_scale, img0.device)
+        with span("nsof.farneback.expand"):
+            r0 = poly_expansion(i0, params.poly_n, params.poly_sigma, hp, wp, blur)
+            r1 = poly_expansion(i1, params.poly_n, params.poly_sigma, hp, wp, blur,
+                                margin=R1_MARGIN)
+        with span("nsof.farneback.update"):
+            bsc = border_scale(hk, wk, str(img0.device))
+            m = update_matrices_sep(dx, dy, r0, r1, bsc, radius, out_dtype=m_dtype)
+            for _ in range(params.iterations - 1):
+                m = fused_box_update(m, r0, r1, bsc, params.winsize, radius,
+                                     "matrices")
+            fl = fused_box_update(m, r0, r1, bsc, params.winsize, radius, "flow")
         dx = fl[:, 0, :hk, :wk]
         dy = fl[:, 1, :hk, :wk]
     return dx, dy
@@ -743,20 +748,23 @@ def _farneback_fast_levels(img0, img1, params: FarnebackParams, radius: int,
         smooth_sz = max(_cv_round(sigma * 5) | 1, 3)
         wk = _cv_round(w * scale)
         hk = _cv_round(h * scale)
-        dx, dy = _upscale_flow(dx, dy, b, hk, wk, params.pyr_scale, img0.device)
         n = smooth_sz // 2
         gk = _gaussian_blur_kernel(smooth_sz, sigma)
-        i0 = _resize_hwb(_blur_valid(_reflect_pad(img0, n), gk), hk, wk)
-        i1 = _resize_hwb(_blur_valid(_reflect_pad(img1, n), gk), hk, wk)
-        r0 = poly_expansion_fast(i0, params.poly_n, params.poly_sigma)
-        r1p = _extend(poly_expansion_fast(i1, params.poly_n, params.poly_sigma),
-                      e, e, e, e)
-        bsc = border_scale(hk, wk, str(img0.device))
-        m = update(dx, dy, r0, r1p, bsc)
-        for i in range(params.iterations):
-            dx, dy = solve(m)
-            if i < params.iterations - 1:
-                m = update(dx, dy, r0, r1p, bsc)
+        with span("nsof.farneback.pyramid"):
+            dx, dy = _upscale_flow(dx, dy, b, hk, wk, params.pyr_scale, img0.device)
+            i0 = _resize_hwb(_blur_valid(_reflect_pad(img0, n), gk), hk, wk)
+            i1 = _resize_hwb(_blur_valid(_reflect_pad(img1, n), gk), hk, wk)
+        with span("nsof.farneback.expand"):
+            r0 = poly_expansion_fast(i0, params.poly_n, params.poly_sigma)
+            r1p = _extend(poly_expansion_fast(i1, params.poly_n, params.poly_sigma),
+                          e, e, e, e)
+        with span("nsof.farneback.update"):
+            bsc = border_scale(hk, wk, str(img0.device))
+            m = update(dx, dy, r0, r1p, bsc)
+            for i in range(params.iterations):
+                dx, dy = solve(m)
+                if i < params.iterations - 1:
+                    m = update(dx, dy, r0, r1p, bsc)
     return dx, dy
 
 
@@ -802,14 +810,15 @@ def farneback_fast(
     """
     kernel_mode = route(kernel_mode, params)
     dev = _build.resolve_device(device)
-    img0 = torch.as_tensor(prev).to(dev, torch.float32).contiguous()
-    img1 = torch.as_tensor(next_).to(dev, torch.float32).contiguous()
-    if kernel_mode in ("fused", "fused_f32"):
-        m_dtype = torch.bfloat16 if kernel_mode == "fused" else torch.float32
-        dx, dy = _farneback_fast_fused(img0, img1, params, warp_radius, m_dtype)
-    else:
-        dx, dy = _farneback_fast_levels(img0, img1, params, warp_radius,
-                                        kernel_mode)
-    if out_layout == "planes":
-        return dx, dy
-    return torch.stack([dx, dy], dim=-1)
+    with span("nsof.farneback"):
+        img0 = torch.as_tensor(prev).to(dev, torch.float32).contiguous()
+        img1 = torch.as_tensor(next_).to(dev, torch.float32).contiguous()
+        if kernel_mode in ("fused", "fused_f32"):
+            m_dtype = torch.bfloat16 if kernel_mode == "fused" else torch.float32
+            dx, dy = _farneback_fast_fused(img0, img1, params, warp_radius, m_dtype)
+        else:
+            dx, dy = _farneback_fast_levels(img0, img1, params, warp_radius,
+                                            kernel_mode)
+        if out_layout == "planes":
+            return dx, dy
+        return torch.stack([dx, dy], dim=-1)

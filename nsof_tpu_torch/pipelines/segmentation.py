@@ -31,6 +31,7 @@ from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
 from nsof_tpu_torch.ops.farneback_fast import farneback_fast
 from nsof_tpu_torch.ops.morphology import ellipse_se
 from nsof_tpu_torch.ops.morphology_fast import dilate_erode_n_masked
+from nsof_tpu_torch.utils.timing import span
 
 
 def _seg_head_mag2(mag2: torch.Tensor, inbox: torch.Tensor,
@@ -76,46 +77,48 @@ def seg_batch_fast(
     ``kernel_mode`` picks the Farnebäck route (see
     :func:`nsof_tpu_torch.ops.farneback_fast.farneback_fast`).
     """
-    dev = _build.resolve_device(device)
-    if warp_radius is None:
-        warp_radius = cfg.warp_radius
-    h, w = cfg.image_h, cfg.image_w
-    wh, ww = cfg.win_shape
-    mem = torch.as_tensor(mem_u8).to(dev)
-    prev = torch.as_tensor(prev_gray).to(dev).contiguous()
-    nxt = torch.as_tensor(next_gray).to(dev).contiguous()
+    with span("nsof.seg_batch_fast"):
+        dev = _build.resolve_device(device)
+        if warp_radius is None:
+            warp_radius = cfg.warp_radius
+        h, w = cfg.image_h, cfg.image_w
+        wh, ww = cfg.win_shape
+        mem = torch.as_tensor(mem_u8).to(dev)
+        prev = torch.as_tensor(prev_gray).to(dev).contiguous()
+        nxt = torch.as_tensor(next_gray).to(dev).contiguous()
 
-    r = roi_ops.roi_boxes(mem, h, w, cfg.roi)
-    box = r["merged"]
-    active = r["any_active"]
-    oys, oxs = roi_ops.window_origin(box, wh, ww, h, w)
-    p_win = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
-    n_win = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)
+        with span("nsof.gate"):
+            r = roi_ops.roi_boxes(mem, h, w, cfg.roi)
+            box = r["merged"]
+            active = r["any_active"]
+            oys, oxs = roi_ops.window_origin(box, wh, ww, h, w)
+            region_pct = roi_ops.region_percentage(box, h, w)
+        with span("nsof.crop"):
+            p_win = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
+            n_win = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)
 
-    # the head needs only |flow|², so the Farnebäck sign flip is skipped
-    dx, dy = farneback_fast(p_win, n_win, cfg.fb, warp_radius, kernel_mode,
-                            out_layout="planes", device=dev)
-    inbox = roi_ops.window_box_mask(box, oys, oxs, wh, ww) & active[:, None, None]
-    mask_win = _seg_head_mag2(dx * dx + dy * dy, inbox, cfg)
-    b = mem.shape[0]
-    mask = roi_ops.scatter_window(
-        torch.zeros((b, h, w), dtype=torch.uint8, device=dev), mask_win, box,
-        oys, oxs,
-    )
-    out = {
-        "mask": mask,
-        "box": box,
-        "any_active": active,
-        "region_pct": roi_ops.region_percentage(box, h, w),
-    }
-    if return_flow:
-        # negated (optical_flow_seg.py:461), zero outside the box
-        flow_win = torch.stack([-dx, -dy], dim=-1)
-        flow_win = torch.where(inbox[..., None], flow_win, torch.zeros_like(flow_win))
-        out["flow"] = roi_ops.scatter_window(
-            torch.zeros((b, h, w, 2), dtype=torch.float32, device=dev),
-            flow_win, box, oys, oxs,
-        )
+        # the head needs only |flow|², so the Farnebäck sign flip is skipped
+        dx, dy = farneback_fast(p_win, n_win, cfg.fb, warp_radius, kernel_mode,
+                                out_layout="planes", device=dev)
+        with span("nsof.head"):
+            # made after the Farnebäck: B window-sized bytes held through its peak otherwise
+            inbox = roi_ops.window_box_mask(box, oys, oxs, wh, ww) & active[:, None, None]
+            mask_win = _seg_head_mag2(dx * dx + dy * dy, inbox, cfg)
+        with span("nsof.scatter"):
+            b = mem.shape[0]
+            mask = roi_ops.scatter_window(
+                torch.zeros((b, h, w), dtype=torch.uint8, device=dev), mask_win, box,
+                oys, oxs,
+            )
+            out = {"mask": mask, "box": box, "any_active": active, "region_pct": region_pct}
+            if return_flow:
+                # negated (optical_flow_seg.py:461), zero outside the box
+                flow_win = torch.stack([-dx, -dy], dim=-1)
+                flow_win = torch.where(inbox[..., None], flow_win, torch.zeros_like(flow_win))
+                out["flow"] = roi_ops.scatter_window(
+                    torch.zeros((b, h, w, 2), dtype=torch.float32, device=dev),
+                    flow_win, box, oys, oxs,
+                )
     return out
 
 

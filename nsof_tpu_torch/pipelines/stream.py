@@ -32,6 +32,7 @@ from nsof_tpu_torch.device.event_sim import EventSimConfig, bin_events, simulate
 from nsof_tpu_torch.device.frame_sim import FrameSimConfig, compress_frames, scan_device
 from nsof_tpu_torch.device.model import _div
 from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast
+from nsof_tpu_torch.utils.timing import span
 
 
 def _seg_out(seg: dict, **extra) -> dict:
@@ -54,16 +55,22 @@ def stream_masks(frames_gray, cfg: PipelineConfig, sim: FrameSimConfig = FrameSi
     [gh, gw]; with ``return_flow`` also ``flow`` [T-1, H, W, 2] (negated,
     zero outside the ROI).  Runs on ``device`` (default the CUDA device;
     raises ``RuntimeError`` without one unless ``device='cpu'``)."""
-    dev = _build.resolve_device(device)
-    frames = torch.as_tensor(frames_gray).to(dev)
-    comp = compress_frames(_div(frames.to(torch.float32), 255.0), sim.m, sim.n, device=dev)
-    if w0 is None:
-        w0 = torch.full(comp.shape[1:], sim.params.w_init, dtype=torch.float32, device=dev)
-    else:
-        w0 = torch.as_tensor(w0).to(dev)
-    w_final, mem_gray, _ = scan_device(comp, sim, w0)
-    seg = seg_batch_fast(mem_gray, frames[:-1], frames[1:], cfg, warp_radius, kernel_mode,
-                         return_flow=return_flow, device=dev)
+    with span("nsof.stream_masks"):
+        dev = _build.resolve_device(device)
+        frames = torch.as_tensor(frames_gray).to(dev)
+        frames01 = _div(frames.to(torch.float32), 255.0)
+        with span("nsof.frame_sim.compress"):
+            comp = compress_frames(frames01, sim.m, sim.n, device=dev)
+            del frames01  # four bytes a pixel of the chunk: not held through the flow
+            if w0 is None:
+                w0 = torch.full(comp.shape[1:], sim.params.w_init, dtype=torch.float32,
+                                device=dev)
+            else:
+                w0 = torch.as_tensor(w0).to(dev)
+        with span("nsof.frame_sim.scan"):
+            w_final, mem_gray, _ = scan_device(comp, sim, w0)
+        seg = seg_batch_fast(mem_gray, frames[:-1], frames[1:], cfg, warp_radius,
+                             kernel_mode, return_flow=return_flow, device=dev)
     out = _seg_out(seg, mem_gray=mem_gray, w_final=w_final)
     if return_flow:
         out["flow"] = seg["flow"]

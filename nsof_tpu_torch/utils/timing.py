@@ -7,6 +7,9 @@ optical_flow_seg.py:51-59) and, for GPU backends, ``torch.cuda.synchronize``
 :func:`block_until_ready` synchronises every CUDA device that holds a tensor
 of a result (where the JAX package calls ``jax.block_until_ready``) before a
 clock is read.
+
+:func:`span` names a layer of the port's main path in a profiler trace; it
+costs one flag read when no profiler records.
 """
 
 from __future__ import annotations
@@ -18,6 +21,25 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the host's work, for the profiler: while a
+    ``torch.profiler`` records, a ``record_function(name)`` range, whose
+    kernels the trace ties to it by correlation id; otherwise one shared
+    no-op context.  The off check reads the profiler's Python flag and
+    makes no C call.  A span never synchronises, allocates, records a CUDA
+    event or touches a tensor.  Usage::
+
+        with span("nsof.gate"):
+            ...
+    """
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _cuda_devices(tree, found: set) -> set:
@@ -102,6 +124,14 @@ def profile_trace(log_dir: str):
     where there is one, the CUDA device, written as a Chrome trace to
     ``log_dir/trace.json`` (viewable in Perfetto or ``chrome://tracing``).
     Yields the profiler, whose ``key_averages()`` sums the time by kernel.
+
+    The port's main path marks its layers with :func:`span`, so the trace
+    holds these ranges, each kernel tied to the one that launched it:
+    ``nsof.seg_batch_fast`` holds ``nsof.gate``, ``nsof.crop``,
+    ``nsof.farneback`` (``nsof.farneback.pyramid``, ``.expand`` and
+    ``.update`` a pyramid level), ``nsof.head`` and ``nsof.scatter``;
+    ``nsof.stream_masks`` holds ``nsof.frame_sim.compress``,
+    ``nsof.frame_sim.scan`` and then ``nsof.seg_batch_fast``.
 
     Usage::
 
