@@ -195,6 +195,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -223,9 +224,11 @@ from nsof_tpu_torch.models.flowformer import FlowFormer, get_experiment
 from nsof_tpu_torch.models.raft import RAFT, RaftConfig
 from nsof_tpu_torch.ops import components as tcomp
 from nsof_tpu_torch.ops import farneback_fast as tff
+from nsof_tpu_torch.ops import morphology_fast as tmf
 from nsof_tpu_torch.ops import roi as troi
 from nsof_tpu_torch.ops.farneback import PRESETS, _gaussian_blur_kernel, _poly_exp_coeffs
 from nsof_tpu_torch.ops.farneback import farneback
+from nsof_tpu_torch.ops.morphology import ellipse_se
 from nsof_tpu_torch.pipelines.prediction import (prediction_batch_fast, prediction_ssim,
                                                  prediction_stages)
 from nsof_tpu_torch.pipelines import runner as trunner
@@ -265,8 +268,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 EXPECTED_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
                      "update_matrices_sep": 4, "fused_box_update": 12}
+# the paths through the seg head (seg_batch_fast, seg_head_window_batch) add
+# K10 once a call; the tracking and prediction heads run none
+SEG_LAUNCHES = {**EXPECTED_LAUNCHES, "seg_head": 1}
 F32_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
-                "update_matrices_sep_f32": 4, "fused_box_update_f32": 12}
+                "update_matrices_sep_f32": 4, "fused_box_update_f32": 12, "seg_head": 1}
 # K1 beyond the main path: name → (frames shape, dtype, window, oys, oxs);
 # origins ≡ 0, 1, 15 (mod 16), ragged widths, 1-, 2-, 4- and 12-byte
 # elements, negative and clamped origins, B = 1
@@ -322,8 +328,9 @@ K4_CASES = [(15, RADIUS), (4, 5), (17, 7), (63, 7)]
 AD_B = 128
 AD_B_CHECK = 4
 AD_LAUNCHES = {
-    "auto": {"crop_windows": 2, "update_matrices_sep_level": 12, "box_solve": 12},
-    "pallas": {"crop_windows": 2, "update_matrices": 12, "box_solve": 12},
+    "auto": {"crop_windows": 2, "update_matrices_sep_level": 12, "box_solve": 12,
+             "seg_head": 1},
+    "pallas": {"crop_windows": 2, "update_matrices": 12, "box_solve": 12, "seg_head": 1},
 }
 # the tracking and prediction paths: batch, and the labelling's most host
 # synchronisations a call (one every 8 of at most 256 sweeps); the tracking
@@ -358,7 +365,7 @@ K8_CASES = {
 # call, the grasp main path's kernels and one K8 launch
 STREAM_T = 128 + 1
 STREAM_CHUNK = 64
-STREAM_LAUNCHES = {"device_scan": 1, **EXPECTED_LAUNCHES}
+STREAM_LAUNCHES = {"device_scan": 1, **SEG_LAUNCHES}
 # K8's plain version is ~25 launches a substep: it is timed at this count
 K8_PLAIN_SUBSTEPS = 100
 # the event-gated stream: a 2×2-cell box crossing the 6×8 grid at 8 cells
@@ -385,6 +392,9 @@ EVENT_KEY_EVERY = 100
 DEEP_H, DEEP_W, DEEP_WIN = 480, 640, (256, 384)
 DEEP_ITERS = 20
 DEEP_LAUNCHES = {"crop_windows": 2}
+# the deep batch step's seg head (seg_head_window_batch) is K10; the single
+# ROI step's is the exact head
+DEEP_BATCH_LAUNCHES = {**DEEP_LAUNCHES, "seg_head": 1}
 # the card's flow against the port's on the CPU (float32, no TF32) and the
 # two corr modes against each other on the card, in px: rounding moved
 # these models' flows by 6e-6 to 3e-5 px on the CPU (weights scaled by
@@ -516,6 +526,23 @@ K9_CASES = {
     "n8192_arena_global": (1, 8192, "random", False),
 }
 K9_IOU = 0.45
+# K10 against its plain version: name → (B, H, W, ksize, iterations); the
+# grasp window's width (1080) and autodriving's (801) with the 10 × 10
+# ellipse at 5 iterations, ragged widths, one column, the widest SE at the
+# widest row (opted-in shared memory), no iteration; samples cycle through
+# the whole frame, boxes touching the top-left and the bottom-right corner,
+# a box mask that is no rectangle and an inactive sample
+K10_CASES = {
+    "grasp_w1080": (8, 300, 1080, 10, 5),
+    "autodriving_w801": (8, 300, 801, 10, 5),
+    "w33_k3": (8, 70, 33, 3, 3),
+    "w65_k11": (8, 70, 65, 11, 1),
+    "w1_k5": (8, 40, 1, 5, 2),
+    "w8192_k31": (2, 40, 8192, 31, 2),
+    "no_iteration": (8, 50, 100, 10, 0),
+}
+# K10's timed shapes: the benchmark's windows, B = 128
+K10_SHAPES = {"grasp": (128, 1920, 1080), "autodriving": (128, 801, 801)}
 # one dependent step of K9 as reckoned for its chain bound: two 5-level warp
 # shuffle trees (~30 cycles a level), three barriers (~40 cycles each) and
 # the pick's IoU (~25 dependent float32 operations at 4 cycles, a division
@@ -563,6 +590,9 @@ SOURCES = {
                     "device_scan_kernel"),
     "nms": ("nsof_tpu_torch/csrc/nms.cu",
             "nsof_tpu/ops/components.py:164 (not a TPU kernel: XLA fori_loop)", "nms_kernel"),
+    "seg_head": ("nsof_tpu_torch/csrc/seg_head.cu",
+                 "nsof_tpu/ops/morphology_fast.py::dilate_erode_n_masked_hwb (not a TPU "
+                 "kernel: plain XLA)", "seg_head_"),
 }
 
 
@@ -809,7 +839,8 @@ def plain_route():
              "update_matrices": (tff, tff._update_matrices_plain),
              "box_solve": (tff, tff._box_solve_plain),
              "scan_device": (tstream, tfs.scan_device_plain),
-             "nms_batch": (tcomp, tcomp.nms)}
+             "nms_batch": (tcomp, tcomp.nms),
+             "seg_head": (tmf, tmf.seg_head_plain)}
     saved = {name: getattr(mod, name) for name, (mod, _) in names.items()}
     for name, (mod, plain) in names.items():
         setattr(mod, name, plain)
@@ -1267,6 +1298,54 @@ def k9_case(name: str, dev):
     return (lambda: tcomp.nms_batch(*args)), (lambda: tcomp.nms(*args))
 
 
+def k10_inputs(b: int, h: int, w: int, seed: int, dev, whole: bool = False):
+    """Flow planes ``[b, h, w]`` about SEG_TH (1) with noise, drawn on the
+    card, and box masks: with ``whole`` the whole frame in every sample,
+    else the whole frame, a box touching the top-left corner, one touching
+    the bottom-right, a random field and an inactive sample, in turn."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ys = torch.linspace(0, 3 * math.pi, h, device=dev)[:, None]
+    xs = torch.linspace(0, 4 * math.pi, w, device=dev)[None, :]
+    phase = torch.rand((b, 1, 1), generator=g, device=dev) * 6
+    mag = (1 + 0.6 * torch.sin(ys + phase) * torch.cos(xs - phase)
+           + 0.25 * torch.randn((b, h, w), generator=g, device=dev))
+    ang = torch.rand((b, h, w), generator=g, device=dev) * (2 * math.pi)
+    ib = torch.ones((b, h, w), dtype=torch.bool, device=dev)
+    if not whole:
+        for i in range(b):
+            kind = i % 5
+            if kind == 1:
+                ib[i, h // 2:] = False
+                ib[i, :, w // 2 + 1:] = False
+            elif kind == 2:
+                ib[i, : h // 3] = False
+                ib[i, :, : w // 3] = False
+            elif kind == 3:
+                ib[i] = torch.rand((h, w), generator=g, device=dev) < 0.85
+            elif kind == 4:
+                ib[i] = False
+    return mag * torch.cos(ang), mag * torch.sin(ang), ib
+
+
+def check_k10(errs: dict, dev) -> None:
+    """K10 against its plain version at every K10_CASES case: the masks
+    required equal, one launch a call."""
+    set_px = {}
+    for name, (b, h, w, ksize, iters) in K10_CASES.items():
+        dx, dy, ib = k10_inputs(b, h, w, len(name), dev)
+        se = ellipse_se(ksize, ksize)
+        launches, got = launched_by(lambda: tmf.seg_head(dx, dy, ib, 1.0, se, iters))
+        if launches != {"seg_head": 1}:
+            raise AssertionError(f"K10 {name}: launches {launches}")
+        ref = tmf.seg_head_plain(dx, dy, ib, 1.0, se, iters)
+        if got.dtype != torch.uint8 or not torch.equal(got, ref):
+            raise AssertionError(f"K10 {name}: the mask differs from the plain head's")
+        set_px[name] = float((ref > 0).float().mean())
+    errs["seg_head"] = 0
+    emit({"phase": "check", "kernel": "seg_head", "cases": list(K10_CASES),
+          "mask_share_set": set_px, "max_abs_err": 0, "tolerance": 0})
+
+
 def check_k9(errs: dict, dev) -> None:
     """K9 against its plain version at every K9_CASES case: the keep masks
     required equal.  K9_GLOBAL_N must be past the shared-memory mask and 32
@@ -1312,7 +1391,7 @@ def stream_sim() -> tfs.FrameSimConfig:
 
 def drive_stream(dev) -> dict:
     """``stream_masks`` on bench_stream.py's workload in 'auto': exactly
-    STREAM_LAUNCHES (K8 once, the grasp path's K1–K4), every output equal
+    STREAM_LAUNCHES (K8 once, the grasp path's K1–K4 and K10), every output equal
     to the plain route's (K8 on its plain loop too), no host
     synchronisation; timed and traced.  Then ``stream_masks_chunked`` at
     STREAM_CHUNK pairs a chunk, equal to the one-shot call, timed."""
@@ -1398,8 +1477,8 @@ def drive_events(dev) -> None:
         return tstream.stream_masks_from_events(x, y, p, t, frames, frame_t, cfg, (gh, gw))
 
     launches, out = launched_by(call)
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"event stream: launches {launches} != {EXPECTED_LAUNCHES}")
+    if launches != SEG_LAUNCHES:
+        raise AssertionError(f"event stream: launches {launches} != {SEG_LAUNCHES}")
     active = out["any_active"]
     if not active.any():
         raise AssertionError("the event-driven gate never fired")
@@ -1410,9 +1489,9 @@ def drive_events(dev) -> None:
         raise AssertionError(f"the event-gated ROI {out['boxes'][last].tolist()} misses the box")
     syncs = host_syncs(call)
     ms, samples = median_ms(call, [()])
-    whole = device_trace(call, ms, len(frame_t) - 1, EXPECTED_LAUNCHES, path="event_stream")
+    whole = device_trace(call, ms, len(frame_t) - 1, SEG_LAUNCHES, path="event_stream")
     seg = device_trace(lambda: seg_batch_fast(out["mem_gate"], frames[:-1], frames[1:], cfg),
-                       ms, len(frame_t) - 1, EXPECTED_LAUNCHES, path="event_stream_seg")
+                       ms, len(frame_t) - 1, SEG_LAUNCHES, path="event_stream_seg")
     n_slices = sum(max(1, -(-int(b - a) // 1000)) for a, b in zip(frame_t[:-1], frame_t[1:]))
     emit({"phase": "event_stream", "events": int(x.size), "grid": [gh, gw],
           "pairs": len(frame_t) - 1, "slices": n_slices, "launches_per_call": launches,
@@ -1515,7 +1594,7 @@ def drive_engine(dev) -> None:
     ENGINE_MAX_BATCH, default buckets, warmed up; ENGINE_REQUESTS requests
     from ENGINE_THREADS threads, each result equal bit for bit to the
     direct ``seg_batch_fast`` of the padded batch it was dispatched in;
-    K1–K4 launched EXPECTED_LAUNCHES times a dispatch; host
+    K1–K4 and K10 launched SEG_LAUNCHES times a dispatch; host
     synchronisations of one dispatch; requests a second and p50/p99
     latency, beside the device-resident batch's time and the parts of one
     dispatch."""
@@ -1570,7 +1649,7 @@ def drive_engine(dev) -> None:
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         eng._dispatch, eng._run = dispatch, run
         n_disp = len(records)
-        expected = {k: v * n_disp for k, v in EXPECTED_LAUNCHES.items()}
+        expected = {k: v * n_disp for k, v in SEG_LAUNCHES.items()}
         if launches != expected:
             raise AssertionError(f"engine: launches {launches} != {expected} ({n_disp} dispatches)")
         index = {id(f): i for i, f in enumerate(futs)}
@@ -1603,7 +1682,7 @@ def drive_engine(dev) -> None:
         emit({"phase": "engine", "requests": len(reqs), "threads": ENGINE_THREADS,
               "max_batch": ENGINE_MAX_BATCH, "buckets": list(eng.buckets),
               "warmup_s": warm_s, "stats": eng.stats.as_dict(), "dispatches": n_disp,
-              "launches": launches, "launches_per_dispatch": EXPECTED_LAUNCHES,
+              "launches": launches, "launches_per_dispatch": SEG_LAUNCHES,
               "host_syncs_per_dispatch": sum(syncs.values()), "host_sync_sites": syncs,
               "equal_to_direct_batches": checked, "wall_s": wall_s,
               "dispatch_spans_ms": spans,
@@ -2103,7 +2182,7 @@ def drive_deep_batch(dev) -> dict:
 
         with f32_convs():
             launches, out = launched_by(call)
-            if launches != DEEP_LAUNCHES:
+            if launches != DEEP_BATCH_LAUNCHES:
                 raise AssertionError(f"deep_batch {kind}: launches {launches}")
             against_plain(call, out, ("flow", "mask", "box", "any_active"))
             deep_crop_check(prevs, out["box"])
@@ -2184,7 +2263,7 @@ def drive_deep_engine(dev, backend) -> None:
         torch.cuda.synchronize()
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         eng._dispatch, eng._run = dispatch, run
-        expected = {k: v * len(records) for k, v in DEEP_LAUNCHES.items()}
+        expected = {k: v * len(records) for k, v in DEEP_BATCH_LAUNCHES.items()}
         if launches != expected:
             raise AssertionError(f"deep engine: launches {launches} != {expected}")
         index = {id(f): i for i, f in enumerate(futs)}
@@ -3204,8 +3283,8 @@ def drive_parallel_seg(dev, mesh) -> None:
     fn = make_sharded_seg_batch(mesh, cfg, kernel_mode="fused")
     mem, prev, nxt = bench_inputs(B_MAIN, 0, dev)
     launches, out = launched_by(lambda: fn(mem, prev, nxt))
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"parallel_seg: launches {launches} != {EXPECTED_LAUNCHES}")
+    if launches != SEG_LAUNCHES:
+        raise AssertionError(f"parallel_seg: launches {launches} != {SEG_LAUNCHES}")
     ref = seg_batch_fast(mem, prev, nxt, cfg, kernel_mode="fused")
     for key in ("mask", "box", "any_active"):
         if not torch.equal(out[key], ref[key]):
@@ -3695,6 +3774,30 @@ def kernel_times(launches: dict, errs: dict, dev, prev) -> list[dict]:
     del ad
     torch.cuda.synchronize()
 
+    # ── the seg head (K10) at the benchmark's windows, B = 128, the whole
+    #    frame in the box: dx, dy, the box mask in, the mask out ──
+    head = DATASETS["grasp"].head
+    se = ellipse_se(head.morph_ksize, head.morph_ksize)
+    th2 = head.seg_th ** 2
+    lines = {}
+    for name, (b, h, w) in K10_SHAPES.items():
+        args = (*k10_inputs(b, h, w, 0, dev, whole=True), th2, se, head.morph_iters)
+        bms, _ = bound_ms(b * h * w * 10, 0)
+        lines[name] = {"shape": [b, h, w], "ms": time_ms(lambda: tmf.seg_head(*args)),
+                       "plain_ms": time_ms(lambda: tmf.seg_head_plain(*args), iters=3,
+                                           warm=1),
+                       "bound_ms": bms, "mask_share_set": float(
+                           (tmf.seg_head(*args) > 0).float().mean())}
+        del args
+        torch.cuda.synchronize()
+    b, h, w = K10_SHAPES["grasp"]
+    e = {"name": "seg_head", "route": "cuda", "source": SOURCES["seg_head"][0],
+         "replaces": SOURCES["seg_head"][1], "launches": launches["seg_head"],
+         "max_abs_err": errs["seg_head"], **lines["grasp"], "bound_by": "bytes",
+         "library_ms": None, "autodriving": lines["autodriving"]}
+    emit({"phase": "kernel_time", "batch": b, **e})
+    entries.append(e)
+
     return entries
 
 
@@ -3754,11 +3857,12 @@ def main() -> None:
 
     errs = check_kernels(dev)
     check_k8(errs, dev)
+    check_k10(errs, dev)
 
     # ── the paths at full width ──
     launches = {}
     grasp = bench_cfg()
-    got, _ = drive_path(grasp, bench_inputs, B_MAIN, EXPECTED_LAUNCHES, dev, trace=True,
+    got, _ = drive_path(grasp, bench_inputs, B_MAIN, SEG_LAUNCHES, dev, trace=True,
                         kernel_mode="fused")
     launches.update(got)
     got, _ = drive_path(grasp, bench_inputs, B_MAIN, F32_LAUNCHES, dev, trace=False,

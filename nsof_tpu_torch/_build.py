@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "crop_windows", "poly_expansion", "update_matrices_sep",
     "fused_box_update", "update_matrices", "box_solve", "device_scan", "nms",
+    "seg_head",
 )
 # one counter per kernel wrapper
 LAUNCH_KEYS = (
@@ -54,6 +55,7 @@ LAUNCH_KEYS = (
     "update_matrices",             # K7, the pallas route's update
     "device_scan",                 # K8, the stream's device scan (no TPU kernel)
     "nms",                         # K9, the YOLO post step's NMS (no TPU kernel)
+    "seg_head",                    # K10, the main path's seg head (no TPU kernel)
 )
 
 LAUNCHES = {name: 0 for name in LAUNCH_KEYS}

@@ -10,7 +10,7 @@ scattered back into the frame.
 
 - :func:`seg_batch_fast`, the throughput path: the crop is K1, the flow the
   fast Farnebäck (the fused route, K2–K4, or for presets beyond its halos
-  the level route, K5 and K6), the head thresholds |flow|².
+  the level route, K5 and K6), the head (K10) thresholds |flow|².
 - The exact path, which launches no kernel: :func:`seg_batch` on a batch,
   :func:`seg_step` on one pair, :func:`seg_step_full` on the whole frame,
   and the per-stage programs of the reference's dual-path replay,
@@ -26,6 +26,7 @@ import torch
 from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import PipelineConfig
 from nsof_tpu_torch.ops import colorspace as cs
+from nsof_tpu_torch.ops import morphology_fast
 from nsof_tpu_torch.ops import roi as roi_ops
 from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
 from nsof_tpu_torch.ops.farneback_fast import farneback_fast
@@ -34,23 +35,21 @@ from nsof_tpu_torch.ops.morphology_fast import dilate_erode_n_masked
 from nsof_tpu_torch.utils.timing import span
 
 
-def _seg_head_mag2(mag2: torch.Tensor, inbox: torch.Tensor,
+def _seg_head_mag2(dx: torch.Tensor, dy: torch.Tensor, inbox: torch.Tensor,
                    cfg: PipelineConfig) -> torch.Tensor:
-    """Seg head on |flow|² ``[B, h, w]`` → ``[B, h, w]`` uint8 {0, 255}
-    (the JAX package's ``_seg_head_mag2_hwb``, batch first)."""
-    x = (mag2 > cfg.head.seg_th**2) & inbox
+    """Seg head on the flow planes ``[B, h, w]``: |flow|² > SEG_TH², then
+    N × (dilate ∘ erode) → ``[B, h, w]`` uint8 {0, 255} (the JAX package's
+    ``_seg_head_mag2_hwb``, batch first); K10 on the card."""
     se = ellipse_se(cfg.head.morph_ksize, cfg.head.morph_ksize)
-    x = dilate_erode_n_masked(x, inbox, se, cfg.head.morph_iters)
-    return x.to(torch.uint8) * 255
+    return morphology_fast.seg_head(dx, dy, inbox, cfg.head.seg_th**2, se,
+                                    cfg.head.morph_iters)
 
 
 def seg_head_window_batch(flow_win: torch.Tensor, inbox: torch.Tensor,
                           cfg: PipelineConfig) -> torch.Tensor:
     """Batched seg head: ``[B, h, w, 2]`` flow + ``[B, h, w]`` box mask →
     ``[B, h, w]`` uint8 {0, 255}."""
-    fx, fy = flow_win[..., 0], flow_win[..., 1]
-    mag2 = fx * fx + fy * fy
-    return _seg_head_mag2(mag2, inbox.bool(), cfg)
+    return _seg_head_mag2(flow_win[..., 0], flow_win[..., 1], inbox.bool(), cfg)
 
 
 def seg_batch_fast(
@@ -103,7 +102,7 @@ def seg_batch_fast(
         with span("nsof.head"):
             # made after the Farnebäck: B window-sized bytes held through its peak otherwise
             inbox = roi_ops.window_box_mask(box, oys, oxs, wh, ww) & active[:, None, None]
-            mask_win = _seg_head_mag2(dx * dx + dy * dy, inbox, cfg)
+            mask_win = _seg_head_mag2(dx, dy, inbox, cfg)
         with span("nsof.scatter"):
             b = mem.shape[0]
             mask = roi_ops.scatter_window(

@@ -18,6 +18,7 @@ import torch
 from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import DATASETS
 from nsof_tpu_torch.ops import farneback_fast as tff
+from nsof_tpu_torch.ops import morphology_fast as tmf
 from nsof_tpu_torch.device import event_sim as tev
 from nsof_tpu_torch.device import frame_sim as tfs
 from nsof_tpu_torch.ops import canny as tcanny
@@ -403,6 +404,8 @@ def test_wrappers_raise_without_kernel_library(cuda_device, monkeypatch, tmp_pat
                                 torch.zeros((6, 8), device=dev)),
         lambda: tcomp.nms_batch(torch.zeros((2, 5, 4), device=dev), torch.ones((2, 5), device=dev),
                                 torch.ones((2, 5), dtype=torch.bool, device=dev), 0.45),
+        lambda: tmf.seg_head(img, img, torch.ones((b, hk, wk), dtype=torch.bool, device=dev),
+                             1.0, np.ones((3, 3), np.uint8), 1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError):

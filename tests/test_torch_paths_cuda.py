@@ -19,7 +19,7 @@ GT_OWL_F32_REL, no kernel of the port launched.  ``OwlVitBoxProposer`` and
 ``TransformersSamSegmenter`` built without a device, from tiny local
 Hugging Face directories (``tests/tiny_hf.py``), run on the card (skipped
 where ``transformers`` is missing).  ``make_sharded_seg_batch`` on
-``make_mesh(1)`` at world size 1 over NCCL (B = 4, ``'fused'``) launches K1–K4
+``make_mesh(1)`` at world size 1 over NCCL (B = 4, ``'fused'``) launches K1–K4, K10
 and equals ``seg_batch_fast`` bit for bit.
 
 Needs the card: ``python -m pytest --noconftest -m cuda
@@ -128,6 +128,7 @@ def test_stream_kernels_equal_plain_route(cuda_device):
     got = tstream.stream_masks(frames, cfg, sim)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["device_scan"] == 1 and _build.LAUNCHES["crop_windows"] == 2
+    assert _build.LAUNCHES["seg_head"] == 1
     assert got["any_active"].all() and got["masks"].any()
     chunked = tstream.stream_masks_chunked(frames, cfg, sim, chunk_pairs=3)
     with plain_route():
@@ -142,7 +143,7 @@ def test_stream_kernels_equal_plain_route(cuda_device):
 def test_deep_roi_flow_batch_on_the_card(cuda_device, small):
     """``deep_roi_flow_batch`` on RGB frames of the 120×160 cut (memsize
     20, so 6 on the deep grid), RAFT at 3 iterations with random weights:
-    K1 launched twice (a 3-byte element), the output equal to the plain
+    K1 launched twice (a 3-byte element) and K10 once, the output equal to the plain
     route's, and the flow within 1e-3 px of the same model on the CPU with
     cuDNN's TF32 off."""
     import copy
@@ -163,7 +164,8 @@ def test_deep_roi_flow_batch_on_the_card(cuda_device, small):
         _build.reset_launches()
         out = tdf.deep_roi_flow_batch(mem, prev, nxt, cfg, card)
         torch.cuda.synchronize()
-        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"crop_windows": 2}
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"crop_windows": 2,
+                                                                   "seg_head": 1}
         with plain_route():
             ref = tdf.deep_roi_flow_batch(mem, prev, nxt, cfg, card)
         for k in out:
@@ -256,7 +258,7 @@ def test_sharded_seg_over_nccl(cuda_device):
         torch.cuda.synchronize()
         launched = {k for k, v in _build.LAUNCHES.items() if v}
         assert launched == {"crop_windows", "poly_expansion", "update_matrices_sep",
-                            "fused_box_update"}
+                            "fused_box_update", "seg_head"}
         want = seg_batch_fast(mem, prev, nxt, cfg, kernel_mode="fused")
         for key in ("mask", "box", "any_active"):
             assert torch.equal(got[key], want[key]), key
