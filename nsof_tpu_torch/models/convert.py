@@ -185,7 +185,14 @@ def load_raft_state(model: RAFT, state: Mapping[str, Any]) -> RAFT:
 def pretrained_raft(path: str, iters: int | None = None) -> RAFT:
     """The port's RAFT with a reference checkpoint's weights
     (raft-things.pth, raft-small.pth, raft-sintel.pth, ...), in eval mode on
-    the CPU: the torch side of raft_seg.py:595-607."""
+    the CPU: the torch side of raft_seg.py:595-607.
+
+    The model keeps the JAX package's ``corr_pool='ceil'``, which this
+    loader's JAX-parity test pins.  A published checkpoint runs as published
+    only with ``corr_pool='floor'`` wherever a 1/8 side is odd at some
+    pyramid level (a 640×360 frame: 45 columns); build that model with
+    ``RAFT(dataclasses.replace(infer_raft_config(state), corr_pool='floor'))``
+    and :func:`load_raft_state`."""
     import dataclasses
 
     state = load_torch_state_dict(path)

@@ -19,11 +19,23 @@ that differs from the reference:
 - normalisation eps 1e-5; ``norm='batch'`` is ``GroupNorm(planes // 8)``,
   not BatchNorm; ``'frozenbatch'`` is a per-channel affine (BatchNorm in
   eval mode with its running statistics folded in);
-- the correlation pyramid pools in ceil mode, edge-padding an odd side
-  first, so every level keeps at least one pixel (the reference's floor
-  mode fails below 2^levels px);
+- the correlation pyramid pools in ceil mode by default
+  (``RaftConfig.corr_pool='ceil'``), edge-padding an odd side first, so
+  every level keeps at least one pixel;
 - :func:`corr_lookup`'s flattened (2r+1)² window has x as its outer index
   (the reference's CorrBlock quirk, which converted weights rely on).
+
+Pooling.  The published RAFT (core/corr.py) pools the pyramid with
+``F.avg_pool2d(corr, 2, stride=2)``, floor mode: an odd side drops its last
+row or column, so a 45-column target axis runs 45 → 22 → 11 → 5.  The JAX
+package pools in ceil mode, which the port keeps as the default so that the
+JAX-parity tests hold: 45 → 23 → 12 → 6, the odd side's last column
+replicated, so a lookup near that edge reads a copy of it where the
+published model reads zero.  ``corr_pool='floor'`` is the published
+pooling (a published checkpoint at 1/8 sides that are odd at some level
+needs it); it raises where a level would have no pixel.  Both
+:func:`build_corr_pyramid` and :func:`build_fmap_pyramid` take the mode, so
+the alternate lookup equals the all-pairs one in either.
 
 The lookup is four-tap bilinear sampling with zero padding by gathers (the
 JAX model's hat-selector matrix products are a TPU device for avoiding
@@ -51,6 +63,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from nsof_tpu_torch.ops.correlation import window_sample, windowed_correlation_tiled
+from nsof_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +86,9 @@ class RaftConfig:
     # the basic model's cnet normalisation: 'batch' (GroupNorm stand-in) or
     # 'frozenbatch' (per-channel affine, for reference checkpoints)
     cnet_norm: str = "batch"
+    # the correlation pyramid's 2×2 pooling: 'ceil' (the JAX package's, odd
+    # sides edge-padded first) or 'floor' (the published avg_pool2d)
+    corr_pool: str = "ceil"
 
     @property
     def hidden_dim(self) -> int:
@@ -226,25 +242,41 @@ def _pool_ceil(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 2, 2)
 
 
-def build_corr_pyramid(corr: torch.Tensor, num_levels: int) -> list[torch.Tensor]:
+def _pool(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """2×2 average pooling of ``[N, C, H, W]``: ``'ceil'``
+    (:func:`_pool_ceil`) or ``'floor'`` (``F.avg_pool2d(x, 2, 2)``, an odd
+    side's last row or column dropped; raises where a side is under 2)."""
+    if mode == "ceil":
+        return _pool_ceil(x)
+    if mode != "floor":
+        raise ValueError(f"unknown corr_pool {mode!r}")
+    if x.shape[-2] < 2 or x.shape[-1] < 2:
+        raise ValueError(f"floor pooling of a {x.shape[-2]}x{x.shape[-1]} level leaves no "
+                         "pixel: fewer correlation levels or a larger frame")
+    return F.avg_pool2d(x, 2, 2)
+
+
+def build_corr_pyramid(corr: torch.Tensor, num_levels: int,
+                       pool: str = "ceil") -> list[torch.Tensor]:
     """Pool the target axes of ``[B, H, W, H2, W2]`` into ``num_levels``
-    levels ``[B·H·W, H2ℓ, W2ℓ]`` (core/corr.py:22-27, in ceil mode)."""
+    levels ``[B·H·W, H2ℓ, W2ℓ]`` (core/corr.py:22-27) in ``pool`` mode."""
     b, h, w, h2, w2 = corr.shape
     x = corr.reshape(b * h * w, 1, h2, w2)
     pyramid = [x[:, 0]]
     for _ in range(num_levels - 1):
-        x = _pool_ceil(x)
+        x = _pool(x, pool)
         pyramid.append(x[:, 0])
     return pyramid
 
 
-def build_fmap_pyramid(fmap2: torch.Tensor, num_levels: int) -> list[torch.Tensor]:
-    """The pooled ``[B, H, W, C]`` fmap2 pyramid of the alternate lookup
-    (ceil mode, like :func:`build_corr_pyramid`)."""
+def build_fmap_pyramid(fmap2: torch.Tensor, num_levels: int,
+                       pool: str = "ceil") -> list[torch.Tensor]:
+    """The pooled ``[B, H, W, C]`` fmap2 pyramid of the alternate lookup,
+    in ``pool`` mode like :func:`build_corr_pyramid`."""
     pyr = [fmap2]
     x = fmap2.permute(0, 3, 1, 2)
     for _ in range(num_levels - 1):
-        x = _pool_ceil(x)
+        x = _pool(x, pool)
         pyr.append(x.permute(0, 2, 3, 1))
     return pyr
 
@@ -475,29 +507,32 @@ class RAFT(nn.Module):
                 test_mode: bool = False):
         cfg = self.cfg
         iters = iters or cfg.iters
-        img1 = (2.0 * (image1.float() / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
-        img2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
-        b = img1.shape[0]
         hdim = cfg.hidden_dim
-        with self._autocast(img1.device):
-            fmaps = self.fnet(torch.cat([img1, img2], dim=0)).float()
-            cmap = self.cnet(img1)
-            net = torch.tanh(cmap[:, :hdim])
-            inp = F.relu(cmap[:, hdim:])
+        with span("nsof.raft.encode"):
+            img1 = (2.0 * (image1.float() / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
+            img2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
+            b = img1.shape[0]
+            with self._autocast(img1.device):
+                fmaps = self.fnet(torch.cat([img1, img2], dim=0)).float()
+                cmap = self.cnet(img1)
+                net = torch.tanh(cmap[:, :hdim])
+                inp = F.relu(cmap[:, hdim:])
         fmap1 = fmaps[:b].permute(0, 2, 3, 1)
         fmap2 = fmaps[b:].permute(0, 2, 3, 1)
-        if cfg.corr_mode == "alternate":
-            f2_pyramid = build_fmap_pyramid(fmap2, cfg.corr_levels)
+        with span("nsof.raft.corr"):
+            if cfg.corr_mode == "alternate":
+                f2_pyramid = build_fmap_pyramid(fmap2, cfg.corr_levels, cfg.corr_pool)
 
-            def lookup(coords):
-                return alternate_corr_lookup(fmap1, f2_pyramid, coords, cfg.corr_radius)
-        elif cfg.corr_mode == "allpairs":
-            pyramid = build_corr_pyramid(all_pairs_correlation(fmap1, fmap2), cfg.corr_levels)
+                def lookup(coords):
+                    return alternate_corr_lookup(fmap1, f2_pyramid, coords, cfg.corr_radius)
+            elif cfg.corr_mode == "allpairs":
+                pyramid = build_corr_pyramid(all_pairs_correlation(fmap1, fmap2),
+                                             cfg.corr_levels, cfg.corr_pool)
 
-            def lookup(coords):
-                return corr_lookup(pyramid, coords, cfg.corr_radius)
-        else:
-            raise ValueError(f"unknown corr_mode {cfg.corr_mode!r}")
+                def lookup(coords):
+                    return corr_lookup(pyramid, coords, cfg.corr_radius)
+            else:
+                raise ValueError(f"unknown corr_mode {cfg.corr_mode!r}")
 
         _, h8, w8, _ = fmap1.shape
         coords0 = coords_grid(b, h8, w8, img1.device)
@@ -506,12 +541,17 @@ class RAFT(nn.Module):
             coords1 = coords1 + flow_init
 
         def step(net, coords1):
-            corr = lookup(coords1).permute(0, 3, 1, 2)
-            flow = (coords1 - coords0).permute(0, 3, 1, 2)
-            with self._autocast(img1.device):
-                net, up_mask, delta = self.update_block(net, inp, corr, flow)
-            coords1 = coords1 + delta.float().permute(0, 2, 3, 1)
-            flow_up = None if test_mode else self._upsample(coords1 - coords0, up_mask)
+            with span("nsof.raft.lookup"):
+                corr = lookup(coords1).permute(0, 3, 1, 2)
+            with span("nsof.raft.update"):
+                flow = (coords1 - coords0).permute(0, 3, 1, 2)
+                with self._autocast(img1.device):
+                    net, up_mask, delta = self.update_block(net, inp, corr, flow)
+                coords1 = coords1 + delta.float().permute(0, 2, 3, 1)
+            flow_up = None
+            if not test_mode:
+                with span("nsof.raft.upsample"):
+                    flow_up = self._upsample(coords1 - coords0, up_mask)
             return net, up_mask, coords1, flow_up
 
         remat = cfg.remat and torch.is_grad_enabled()
@@ -527,7 +567,9 @@ class RAFT(nn.Module):
             if not test_mode:
                 flows.append(flow_up)
         if test_mode:
-            return coords1 - coords0, self._upsample(coords1 - coords0, up_mask)
+            with span("nsof.raft.upsample"):
+                flow8 = coords1 - coords0
+                return flow8, self._upsample(flow8, up_mask)
         return flows
 
 

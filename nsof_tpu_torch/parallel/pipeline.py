@@ -199,7 +199,8 @@ def make_raft_pp_flow(mesh: DeviceMesh, cfg=None, iters: int | None = None,
             # each level [(M·B)·h8·w8, hl, wl] split into M microbatches, so a
             # slice is the [B·h8·w8, hl, wl] layout corr_lookup reads
             pyramid = [c.reshape((m, c.shape[0] // m) + c.shape[1:]) for c in
-                       build_corr_pyramid(all_pairs_correlation(fmap1, fmap2), cfg.corr_levels)]
+                       build_corr_pyramid(all_pairs_correlation(fmap1, fmap2), cfg.corr_levels,
+                                          cfg.corr_pool)]
             coords = coords_grid(m * b, h8, w8, dev).reshape(m, b, h8, w8, 2)
             act = {"net": net.reshape((m, b) + net.shape[1:]), "coords1": coords.clone()}
             if not cfg.small:

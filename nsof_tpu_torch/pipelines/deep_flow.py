@@ -38,6 +38,7 @@ from nsof_tpu_torch.ops import roi as roi_ops
 from nsof_tpu_torch.pipelines.prediction import warp_region
 from nsof_tpu_torch.pipelines.segmentation import seg_head_window, seg_head_window_batch
 from nsof_tpu_torch.pipelines.tracking import tracking_head_window
+from nsof_tpu_torch.utils.timing import span
 
 MIN_REGION_PX = 64  # raft_seg.py:133-135
 
@@ -149,23 +150,29 @@ def _deep_roi_gate(mem, prev_rgb, next_rgb, cfg: PipelineConfig, backend: DeepBa
     h, w = prev.shape[1:3]
     wh, ww = cfg.window_h or h, cfg.window_w or w
     _check_window(wh, ww, h, w)
-    roi_cfg = dataclasses.replace(cfg.roi, memsize=max(cfg.roi.memsize // 3, 1))
-    r = roi_ops.roi_boxes(mem, h, w, roi_cfg)
-    box = r["merged"]
-    active = (r["any_active"] & ((box[:, 2] - box[:, 0]) >= MIN_REGION_PX)
-              & ((box[:, 3] - box[:, 1]) >= MIN_REGION_PX))
-    oys, oxs = roi_ops.window_origin(box, wh, ww, h, w)
-    p_win = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
-    n_win = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)
-    flow_win = _backend_flow(backend, p_win, n_win)
-    inbox = roi_ops.window_box_mask(box, oys, oxs, wh, ww) & active[:, None, None]
+    with span("nsof.gate"):
+        roi_cfg = dataclasses.replace(cfg.roi, memsize=max(cfg.roi.memsize // 3, 1))
+        r = roi_ops.roi_boxes(mem, h, w, roi_cfg)
+        box = r["merged"]
+        active = (r["any_active"] & ((box[:, 2] - box[:, 0]) >= MIN_REGION_PX)
+                  & ((box[:, 3] - box[:, 1]) >= MIN_REGION_PX))
+        oys, oxs = roi_ops.window_origin(box, wh, ww, h, w)
+        region_pct = roi_ops.region_percentage(box, h, w)
+    with span("nsof.crop"):
+        p_win = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
+        n_win = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)
+    with span("nsof.deep.flow"):
+        flow_win = _backend_flow(backend, p_win, n_win)
+    with span("nsof.head"):
+        inbox = roi_ops.window_box_mask(box, oys, oxs, wh, ww) & active[:, None, None]
+        flow_win = torch.where(inbox[..., None], flow_win, 0.0)
     return {
-        "flow_win": torch.where(inbox[..., None], flow_win, 0.0),
+        "flow_win": flow_win,
         "inbox": inbox,
         "box": box,
         "origin": (oys, oxs),
         "any_active": active,
-        "region_pct": roi_ops.region_percentage(box, h, w),
+        "region_pct": region_pct,
         "hw": (h, w),
     }
 
@@ -246,18 +253,26 @@ def deep_roi_flow_batch(mem_u8, prev_rgb, next_rgb, cfg: PipelineConfig,
     The gate runs on the batch; the windows are cropped by K1 (on the card)
     and go through the backend as one batch; the seg head thresholds
     |flow|² (:func:`seg_head_window_batch`, as the JAX batch step does); the
-    windows, zero outside their boxes, are pasted into zero frames."""
-    g = _deep_roi_gate(mem_u8, prev_rgb, next_rgb, cfg, backend)
-    h, w = g["hw"]
-    oys, oxs = g["origin"]
-    mask_win = seg_head_window_batch(g["flow_win"], g["inbox"], cfg)
-    return {
-        "flow": _paste(g["flow_win"], oys, oxs, h, w),
-        "mask": _paste(mask_win, oys, oxs, h, w),
-        "box": g["box"],
-        "any_active": g["any_active"],
-        "region_pct": g["region_pct"],
-    }
+    windows, zero outside their boxes, are pasted into zero frames.  The
+    spans: ``nsof.deep_roi_flow_batch`` holds ``nsof.gate``, ``nsof.crop``,
+    ``nsof.deep.flow`` (the padding, the backend's spans, the unpadding),
+    ``nsof.head`` twice (the box mask and the flow's masking, then the seg
+    head) and ``nsof.scatter``."""
+    with span("nsof.deep_roi_flow_batch"):
+        g = _deep_roi_gate(mem_u8, prev_rgb, next_rgb, cfg, backend)
+        h, w = g["hw"]
+        oys, oxs = g["origin"]
+        with span("nsof.head"):
+            mask_win = seg_head_window_batch(g["flow_win"], g["inbox"], cfg)
+        with span("nsof.scatter"):
+            out = {
+                "flow": _paste(g["flow_win"], oys, oxs, h, w),
+                "mask": _paste(mask_win, oys, oxs, h, w),
+                "box": g["box"],
+                "any_active": g["any_active"],
+                "region_pct": g["region_pct"],
+            }
+    return out
 
 
 def _full_flow(prev_rgb, next_rgb, backend: DeepBackend) -> torch.Tensor:

@@ -279,12 +279,13 @@ def test_forward_interpolate_matches_jax():
 
 
 def test_config_matches_jax():
-    # every field, `remat` (the backward pass's recompute) included
+    # every field, `remat` (the backward pass's recompute) included; the
+    # port's one more, `corr_pool`, defaults to the JAX model's ceil pooling
     for small in (False, True):
         j, t = jraft.RaftConfig(small=small), traft.RaftConfig(small=small)
         assert (t.hidden_dim, t.context_dim) == (j.hidden_dim, j.context_dim)
         fields = {f.name for f in dataclasses.fields(j)}
-        assert fields == {f.name for f in dataclasses.fields(t)}
+        assert fields | {"corr_pool"} == {f.name for f in dataclasses.fields(t)}
         assert all(getattr(j, f) == getattr(t, f) for f in fields - {"compute_dtype"})
-        assert not t.remat
+        assert not t.remat and t.corr_pool == "ceil"
     assert traft.NORM_EPS == jraft.NORM_EPS
