@@ -2,18 +2,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1–K9) from ``nsof_tpu_torch/csrc``, holds
+Builds the port's CUDA kernels (K1–K11) from ``nsof_tpu_torch/csrc``, holds
 each, and the float32 forms of K3 and K4, against its plain PyTorch version
 on the card (K8, the stream's device scan, at ``K8_CASES``; K9, the YOLO
-post step's NMS, at ``K9_CASES``), then drives three paths of
-``seg_batch_fast``:
+post step's NMS, at ``K9_CASES``; K10, the seg head, at ``K10_CASES``; K11,
+the level route's expansion, at ``K11_CASES``, by bits), then drives three
+paths of ``seg_batch_fast``:
 
 - the main path on bench.py's 640×480 workload (256×384 window, grasp
   preset, memsize 80, warp radius 3) at B = 256, the fused route (K1–K4);
 - the same at ``kernel_mode='fused_f32'`` (K1, K2, K3/K4 in float32);
 - the autodriving preset (801×801 frames and window, memsize 200, poly_n
   10, warp radius 3) at B = 128 in ``kernel_mode`` 'auto' (the pallas_sep
-  route: K1, K5, K6) and 'pallas' (K1, K7, K6).
+  route: K1, K11, K5, K6) and 'pallas' (K1, K11, K7, K6).
 
 Each path's launch counts are zeroed just before it and read just after;
 it must go through exactly its kernels, make no host synchronisation and
@@ -328,9 +329,10 @@ K4_CASES = [(15, RADIUS), (4, 5), (17, 7), (63, 7)]
 AD_B = 128
 AD_B_CHECK = 4
 AD_LAUNCHES = {
-    "auto": {"crop_windows": 2, "update_matrices_sep_level": 12, "box_solve": 12,
-             "seg_head": 1},
-    "pallas": {"crop_windows": 2, "update_matrices": 12, "box_solve": 12, "seg_head": 1},
+    "auto": {"crop_windows": 2, "poly_expansion_level": 4, "update_matrices_sep_level": 12,
+             "box_solve": 12, "seg_head": 1},
+    "pallas": {"crop_windows": 2, "poly_expansion_level": 4, "update_matrices": 12,
+               "box_solve": 12, "seg_head": 1},
 }
 # the tracking and prediction paths: batch, and the labelling's most host
 # synchronisations a call (one every 8 of at most 256 sweeps); the tracking
@@ -543,6 +545,22 @@ K10_CASES = {
 }
 # K10's timed shapes: the benchmark's windows, B = 128
 K10_SHAPES = {"grasp": (128, 1920, 1080), "autodriving": (128, 801, 801)}
+# K11 against its plain version, a level's two images in one launch (r1
+# padded by radius + 1): name → (B, H, W, n, poly_sigma); autodriving's
+# four levels at the main path's B (grid z up to 2·AD_B) and uav's (poly_n
+# 10, the template instance), then the generic kernel at n 5 and 7 on
+# ragged tiles, an image smaller than 2n + 1 and B = 1
+K11_CASES = {
+    **{f"autodriving_{s}": (AD_B, s, s, 10, 1.05) for s in (801, 481, 288, 173)},
+    **{f"uav_{s}": (16, s, s, 10, 1.05) for s in (161, 97, 58, 35)},
+    "n5_ragged": (3, 33, 130, 5, 1.2),
+    "n7_ragged": (3, 70, 259, 7, 1.5),
+    "n10_7x9": (4, 7, 9, 10, 1.05),
+    "n10_b1": (1, 801, 801, 10, 1.05),
+}
+# K11's timed shapes: autodriving's pyramid, B = 128, as one call's four
+# launches
+K11_LEVELS = (801, 481, 288, 173)
 # one dependent step of K9 as reckoned for its chain bound: two 5-level warp
 # shuffle trees (~30 cycles a level), three barriers (~40 cycles each) and
 # the pick's IoU (~25 dependent float32 operations at 4 cycles, a division
@@ -593,6 +611,10 @@ SOURCES = {
     "seg_head": ("nsof_tpu_torch/csrc/seg_head.cu",
                  "nsof_tpu/ops/morphology_fast.py::dilate_erode_n_masked_hwb (not a TPU "
                  "kernel: plain XLA)", "seg_head_"),
+    "poly_expansion_level": ("nsof_tpu_torch/csrc/poly_expansion_level.cu",
+                             "nsof_tpu/ops/farneback_fast.py::poly_expansion_fast (not a "
+                             "TPU kernel: XLA depthwise convolutions)",
+                             "poly_expansion_level_kernel"),
 }
 
 
@@ -834,6 +856,7 @@ def plain_route():
     of a path on the card)."""
     names = {"crop_windows_batch": (troi, troi.crop_windows),
              "poly_expansion": (tff, tff._poly_expansion_plain),
+             "poly_expansion_pair": (tff, tff._poly_expansion_pair_plain),
              "update_matrices_sep": (tff, tff._update_matrices_sep_plain),
              "fused_box_update": (tff, tff._fused_box_update_plain),
              "update_matrices": (tff, tff._update_matrices_plain),
@@ -896,9 +919,7 @@ def ad_level0_operands(b: int, dev, pad: int = RADIUS + 1):
     coarse = torch.from_numpy(rng.normal(size=(b, 2, 26, 26)).astype(np.float32) * 2.0)
     flow = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear")
     dx, dy = flow[:, 0].contiguous().to(dev), flow[:, 1].contiguous().to(dev)
-    r0 = tff.poly_expansion_fast(i0, fb.poly_n, fb.poly_sigma)
-    r1p = tff._extend(tff.poly_expansion_fast(i1, fb.poly_n, fb.poly_sigma),
-                      pad, pad, pad, pad)
+    r0, r1p = tff.poly_expansion_pair(i0, i1, fb.poly_n, fb.poly_sigma, pad)
     bsc = tff.border_scale(h, w, str(dev))
     m = tff.update_matrices(dx, dy, r0, r1p, bsc, RADIUS, separable=True)
     return dict(dx=dx, dy=dy, r0=r0, r1p=r1p, bsc=bsc, m=m, winsize=fb.winsize)
@@ -1344,6 +1365,31 @@ def check_k10(errs: dict, dev) -> None:
     errs["seg_head"] = 0
     emit({"phase": "check", "kernel": "seg_head", "cases": list(K10_CASES),
           "mask_share_set": set_px, "max_abs_err": 0, "tolerance": 0})
+
+
+def k11_images(b: int, h: int, w: int, seed: int, dev):
+    """Two 0–255 float32 images ``[b, h, w]`` drawn on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.rand((b, h, w), generator=g, device=dev) * 255 for _ in range(2)]
+
+
+def check_k11(errs: dict, dev) -> None:
+    """K11 against its plain version at every K11_CASES case, both images
+    of the level in one launch, compared by bits."""
+    for name, (b, h, w, n, sigma) in K11_CASES.items():
+        i0, i1 = k11_images(b, h, w, len(name), dev)
+        launches, (r0, r1p) = launched_by(
+            lambda: tff.poly_expansion_pair(i0, i1, n, sigma, RADIUS + 1))
+        if launches != {"poly_expansion_level": 1}:
+            raise AssertionError(f"K11 {name}: launches {launches}")
+        for got, ref in ((r0, tff._poly_expansion_level_plain(i0, n, sigma)),
+                         (r1p, tff._poly_expansion_level_plain(i1, n, sigma, RADIUS + 1))):
+            if not bits_equal(got, ref):
+                raise AssertionError(f"K11 {name}: differs from the plain expansion")
+        del i0, i1, r0, r1p
+    errs["poly_expansion_level"] = 0
+    emit({"phase": "check", "kernel": "poly_expansion_level", "cases": list(K11_CASES),
+          "max_abs_err": 0, "tolerance": "0, compared by bits"})
 
 
 def check_k9(errs: dict, dev) -> None:
@@ -3774,6 +3820,31 @@ def kernel_times(launches: dict, errs: dict, dev, prev) -> list[dict]:
     del ad
     torch.cuda.synchronize()
 
+    # K11: a call's expansion, autodriving's four levels, both images a
+    # level (r1 padded by radius + 1); 4 bytes in and 20 out a pixel, 189
+    # multiply-adds a pixel at n = 10
+    fb = DATASETS["autodriving"].fb
+    lv = {s: k11_images(b, s, s, s, dev) for s in K11_LEVELS}
+    in_px = sum(2 * b * s * s for s in K11_LEVELS)
+    out_px = sum(b * (s * s + (s + 2 * e) ** 2) for s in K11_LEVELS)
+
+    def call():
+        return [tff.poly_expansion_pair(*lv[s], fb.poly_n, fb.poly_sigma, e)
+                for s in K11_LEVELS]
+
+    counted, _ = launched_by(call)
+    if counted != {"poly_expansion_level": len(K11_LEVELS)}:
+        raise AssertionError(f"K11 a call's four levels: launches {counted}")
+    entry("poly_expansion_level", call,
+          lambda: [tff._poly_expansion_pair_plain(*lv[s], fb.poly_n, fb.poly_sigma, e)
+                   for s in K11_LEVELS],
+          None, in_px * 4 + out_px * 20, in_px * 2 * 189, b, plain_iters=3,
+          launches_per_call=counted["poly_expansion_level"], levels=list(K11_LEVELS),
+          per_level_ms={s: time_ms(lambda: tff.poly_expansion_pair(
+              *lv[s], fb.poly_n, fb.poly_sigma, e)) for s in K11_LEVELS})
+    del lv
+    torch.cuda.synchronize()
+
     # ── the seg head (K10) at the benchmark's windows, B = 128, the whole
     #    frame in the box: dx, dy, the box mask in, the mask out ──
     head = DATASETS["grasp"].head
@@ -3858,6 +3929,7 @@ def main() -> None:
     errs = check_kernels(dev)
     check_k8(errs, dev)
     check_k10(errs, dev)
+    check_k11(errs, dev)
 
     # ── the paths at full width ──
     launches = {}

@@ -19,9 +19,11 @@ runs per pyramid level
 
 The level route (``'pallas_sep'``, ``'pallas'``, ``'xla'``;
 ``_farneback_fast_levels``) blurs the original frames for every level,
-expands them in plain torch (:func:`poly_expansion_fast`) and iterates a
-float32 system M on the level's own extent:
+expands them and iterates a float32 system M on the level's own extent:
 
+- K11 :func:`poly_expansion_pair` once, both frames' expansions in tap
+  order, bit for bit the plain version's; the ``'xla'`` route runs the
+  plain version :func:`_poly_expansion_level_plain`;
 - :func:`update_matrices` builds M: K5, the separable warp
   (``'pallas_sep'``), or K7, the (2r+2)²-tap warp (``'pallas'``); the
   ``'xla'`` route runs K7's plain version;
@@ -470,14 +472,21 @@ def fused_box_update(m, r0, r1, bsc, winsize, radius, emit, margin=R1_MARGIN):
 # ── the level route: expansion, K5 / K7 update, K6 solve ──────────────────
 
 
-def poly_expansion_fast(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
-    """``[B, H, W]`` image → ``[B, 5, H, W]`` expansion (b_y, b_x, a_yy,
-    a_xx, a_xy) of the edge-extended image, on the image's own extent.
+# the widest n K11 takes: a tile's slab and sums must fit a block's shared
+# memory (192 KB at n = 64)
+LEVEL_MAX_N = 64
+
+
+def _poly_expansion_level_plain(img: torch.Tensor, n: int, sigma: float,
+                                pad: int = 0) -> torch.Tensor:
+    """Plain version of K11: ``[B, H, W]`` image → ``[B, 5, H + 2·pad, W +
+    2·pad]`` expansion (b_y, b_x, a_yy, a_xx, a_xy) of the edge-extended
+    image, edge-extended by ``pad``.
 
     Counterpart of ``poly_expansion_fast`` / ``_poly_expansion_channels``,
     which the JAX package runs as XLA depthwise convolutions: three
     vertical (2n+1)-tap passes, then six horizontal ones on their
-    edge-extended results."""
+    edge-extended results, each summed in tap order."""
     g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_coeffs(n, sigma)
     h, w = img.shape[-2:]
     imgp = _extend(img, n, n, 0, 0)
@@ -489,11 +498,69 @@ def poly_expansion_fast(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor
     b4 = _tap_sum(s0, xxg, -1, w)
     b5 = _tap_sum(s2, g, -1, w)
     b6 = _tap_sum(s1, xg, -1, w)
-    return torch.stack(
+    out = torch.stack(
         [b2 * ig11, b3 * ig11, b1 * ig03 + b5 * ig33, b1 * ig03 + b4 * ig33,
          b6 * ig55],
         dim=1,
     )
+    return _extend(out, pad, pad, pad, pad) if pad else out
+
+
+def _poly_expansion_pair_plain(img0, img1, n: int, sigma: float, pad1: int):
+    """Plain version of K11's two-image launch: r0 of ``img0`` and r1p of
+    ``img1`` padded by ``pad1``."""
+    return (_poly_expansion_level_plain(img0, n, sigma),
+            _poly_expansion_level_plain(img1, n, sigma, pad1))
+
+
+def _poly_expansion_level_cuda(imgs, n, sigma, pads):
+    """K11 on one or two images of one shape in one launch, image i padded
+    by ``pads[i]``."""
+    b, h, w = imgs[0].shape
+    for i, img in enumerate(imgs):
+        _check(img, f"img{i}", torch.float32, (b, h, w), imgs[0].device)
+    if not 1 <= n <= LEVEL_MAX_N:
+        raise ValueError(f"poly_n {n} is outside K11's 1 … {LEVEL_MAX_N}")
+    if min(pads) < 0:
+        raise ValueError(f"pads {pads} must not be negative")
+    coef = _poly_coef_tensor(n, float(sigma), None, str(imgs[0].device))
+    coef_host = _poly_coef_np(n, float(sigma), None)
+    outs = [torch.empty((b, 5, h + 2 * p, w + 2 * p), dtype=torch.float32,
+                        device=imgs[0].device) for p in pads]
+    img1, out1 = (imgs[1].data_ptr(), outs[1].data_ptr()) if len(imgs) == 2 else (0, 0)
+    fn = _build.launcher("poly_expansion_level", 6, 7)
+    _build.check(fn(
+        imgs[0].data_ptr(), img1, coef.data_ptr(), coef_host.ctypes.data,
+        outs[0].data_ptr(), out1, b, h, w, n, len(imgs), pads[0], pads[-1],
+        _stream(imgs[0]),
+    ), "poly_expansion_level")
+    _build.LAUNCHES["poly_expansion_level"] += 1
+    return outs
+
+
+def poly_expansion_fast(img: torch.Tensor, n: int, sigma: float,
+                        pad: int = 0) -> torch.Tensor:
+    """K11: ``[B, H, W]`` float32 image → ``[B, 5, H + 2·pad, W + 2·pad]``
+    expansion (b_y, b_x, a_yy, a_xx, a_xy) of the edge-extended image, on
+    the image's own extent edge-extended by ``pad``: canvas pixel (Y, X)
+    holds the expansion at (clamp(Y − pad), clamp(X − pad)).
+
+    Bit for bit :func:`_poly_expansion_level_plain`, which a CPU tensor
+    takes; a CUDA tensor launches K11 (``csrc/poly_expansion_level.cu``),
+    which takes poly_n up to ``LEVEL_MAX_N`` and raises beyond."""
+    if img.is_cuda:
+        return _poly_expansion_level_cuda((img,), n, sigma, (pad,))[0]
+    return _poly_expansion_level_plain(img, n, sigma, pad)
+
+
+def poly_expansion_pair(img0: torch.Tensor, img1: torch.Tensor, n: int,
+                        sigma: float, pad1: int):
+    """A level's two expansions, r0 of ``img0`` and r1p of ``img1`` padded
+    by ``pad1`` (:func:`poly_expansion_fast` of each), in one K11 launch on
+    the card."""
+    if img0.is_cuda:
+        return tuple(_poly_expansion_level_cuda((img0, img1), n, sigma, (0, pad1)))
+    return poly_expansion_fast(img0, n, sigma), poly_expansion_fast(img1, n, sigma, pad1)
 
 
 def _pad_of(r0, r1p, radius):
@@ -720,12 +787,16 @@ def _farneback_fast_levels(img0, img1, params: FarnebackParams, radius: int,
     on ``[B, H, W]`` float32 frames → (dx, dy) ``[B, H, W]``.
 
     Every level blurs the original frames with its own sigma (reflect-101
-    pad, then resize), expands both in plain torch, pads r1 by radius + 1
-    once, and iterates the float32 system: one update, then ``iterations``
-    × (solve, and update for all but the last)."""
+    pad, then resize), expands both (r1 padded by radius + 1; K11 once a
+    level, the plain version on the ``'xla'`` route), and iterates the
+    float32 system: one update, then ``iterations`` × (solve, and update
+    for all but the last)."""
     b, h, w = img0.shape
     e = radius + 1
     if kernel_mode == "xla":
+        def expand(i0, i1):
+            return _poly_expansion_pair_plain(i0, i1, params.poly_n, params.poly_sigma, e)
+
         def update(dx, dy, r0, r1p, bsc):
             return _warp_full(dx, dy, r0, r1p, bsc, radius)
 
@@ -733,6 +804,9 @@ def _farneback_fast_levels(img0, img1, params: FarnebackParams, radius: int,
             return _box_solve_dw(m, params.winsize)
     else:
         sep = kernel_mode == "pallas_sep"
+
+        def expand(i0, i1):
+            return poly_expansion_pair(i0, i1, params.poly_n, params.poly_sigma, e)
 
         def update(dx, dy, r0, r1p, bsc):
             return update_matrices(dx, dy, r0, r1p, bsc, radius, separable=sep)
@@ -755,9 +829,7 @@ def _farneback_fast_levels(img0, img1, params: FarnebackParams, radius: int,
             i0 = _resize_hwb(_blur_valid(_reflect_pad(img0, n), gk), hk, wk)
             i1 = _resize_hwb(_blur_valid(_reflect_pad(img1, n), gk), hk, wk)
         with span("nsof.farneback.expand"):
-            r0 = poly_expansion_fast(i0, params.poly_n, params.poly_sigma)
-            r1p = _extend(poly_expansion_fast(i1, params.poly_n, params.poly_sigma),
-                          e, e, e, e)
+            r0, r1p = expand(i0, i1)
         with span("nsof.farneback.update"):
             bsc = border_scale(hk, wk, str(img0.device))
             m = update(dx, dy, r0, r1p, bsc)

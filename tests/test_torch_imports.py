@@ -406,6 +406,8 @@ def test_wrappers_raise_without_kernel_library(cuda_device, monkeypatch, tmp_pat
                                 torch.ones((2, 5), dtype=torch.bool, device=dev), 0.45),
         lambda: tmf.seg_head(img, img, torch.ones((b, hk, wk), dtype=torch.bool, device=dev),
                              1.0, np.ones((3, 3), np.uint8), 1),
+        lambda: tff.poly_expansion_fast(img, 10, 1.05),
+        lambda: tff.poly_expansion_pair(img, img, 10, 1.05, 4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError):
