@@ -2,19 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1–K11) from ``nsof_tpu_torch/csrc``, holds
+Builds the port's CUDA kernels (K1–K12) from ``nsof_tpu_torch/csrc``, holds
 each, and the float32 forms of K3 and K4, against its plain PyTorch version
 on the card (K8, the stream's device scan, at ``K8_CASES``; K9, the YOLO
 post step's NMS, at ``K9_CASES``; K10, the seg head, at ``K10_CASES``; K11,
-the level route's expansion, at ``K11_CASES``, by bits), then drives three
-paths of ``seg_batch_fast``:
+the level route's expansion, at ``K11_CASES``; K12, the pyramid's pad and
+blur, at ``K12_CASES``, by bits), then drives three paths of
+``seg_batch_fast``:
 
 - the main path on bench.py's 640×480 workload (256×384 window, grasp
-  preset, memsize 80, warp radius 3) at B = 256, the fused route (K1–K4);
-- the same at ``kernel_mode='fused_f32'`` (K1, K2, K3/K4 in float32);
+  preset, memsize 80, warp radius 3) at B = 256, the fused route (K1–K4,
+  K12);
+- the same at ``kernel_mode='fused_f32'`` (K1, K2, K3/K4 in float32, K12);
 - the autodriving preset (801×801 frames and window, memsize 200, poly_n
   10, warp radius 3) at B = 128 in ``kernel_mode`` 'auto' (the pallas_sep
-  route: K1, K11, K5, K6) and 'pallas' (K1, K11, K7, K6).
+  route: K1, K12, K11, K5, K6) and 'pallas' (K1, K12, K11, K7, K6).
 
 Each path's launch counts are zeroed just before it and read just after;
 it must go through exactly its kernels, make no host synchronisation and
@@ -268,12 +270,13 @@ RADIUS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 EXPECTED_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
-                     "update_matrices_sep": 4, "fused_box_update": 12}
+                     "update_matrices_sep": 4, "fused_box_update": 12, "pyramid_blur": 3}
 # the paths through the seg head (seg_batch_fast, seg_head_window_batch) add
 # K10 once a call; the tracking and prediction heads run none
 SEG_LAUNCHES = {**EXPECTED_LAUNCHES, "seg_head": 1}
 F32_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
-                "update_matrices_sep_f32": 4, "fused_box_update_f32": 12, "seg_head": 1}
+                "update_matrices_sep_f32": 4, "fused_box_update_f32": 12, "pyramid_blur": 3,
+                "seg_head": 1}
 # K1 beyond the main path: name → (frames shape, dtype, window, oys, oxs);
 # origins ≡ 0, 1, 15 (mod 16), ragged widths, 1-, 2-, 4- and 12-byte
 # elements, negative and clamped origins, B = 1
@@ -329,10 +332,10 @@ K4_CASES = [(15, RADIUS), (4, 5), (17, 7), (63, 7)]
 AD_B = 128
 AD_B_CHECK = 4
 AD_LAUNCHES = {
-    "auto": {"crop_windows": 2, "poly_expansion_level": 4, "update_matrices_sep_level": 12,
-             "box_solve": 12, "seg_head": 1},
-    "pallas": {"crop_windows": 2, "poly_expansion_level": 4, "update_matrices": 12,
-               "box_solve": 12, "seg_head": 1},
+    "auto": {"crop_windows": 2, "pyramid_blur": 4, "poly_expansion_level": 4,
+             "update_matrices_sep_level": 12, "box_solve": 12, "seg_head": 1},
+    "pallas": {"crop_windows": 2, "pyramid_blur": 4, "poly_expansion_level": 4,
+               "update_matrices": 12, "box_solve": 12, "seg_head": 1},
 }
 # the tracking and prediction paths: batch, and the labelling's most host
 # synchronisations a call (one every 8 of at most 256 sweeps); the tracking
@@ -561,6 +564,40 @@ K11_CASES = {
 # K11's timed shapes: autodriving's pyramid, B = 128, as one call's four
 # launches
 K11_LEVELS = (801, 481, 288, 173)
+# the pyramid's blurs in the Farnebäck cells, a call's launches in order, as
+# (level, H, W, taps, sigma): autodriving's level route blurs the 801²
+# originals for levels 3, 2, 1 and 0; grasp's fused route blurs the
+# 1920×1080 original for level 1, then its 960×540 and 480×270 levels with
+# the incremental sigma of cv2's cascade
+K12_LEVELS = {
+    "autodriving": [(3, 801, 801, 9, (1 / 0.6**3 - 1) * 0.5),
+                    (2, 801, 801, 5, (1 / 0.6**2 - 1) * 0.5),
+                    (1, 801, 801, 3, (1 / 0.6 - 1) * 0.5), (0, 801, 801, 3, 0.0)],
+    "grasp": [(1, 1920, 1080, 3, 0.5), (2, 960, 540, 7, math.sqrt(0.75**2 - 0.25**2)),
+              (3, 480, 270, 7, math.sqrt(0.875**2 - 0.375**2))],
+}
+# K12 against its plain version, a level's two images in one launch: name →
+# (B, H, W, taps, sigma); the cells' own levels at B = 128, then t = 1,
+# n = H − 1 and n = W − 1, ragged tiles and one row and one column beyond a
+# tile of each template instance (its tile is 32 rows by 128 − 2n columns),
+# B = 1, the generic instance at t = 11 and 257 (its columns in two and
+# three chunks), and grids past the launch's 65,535 tiles down and images
+# across
+K12_CASES = {
+    **{f"{cell}_level{lv}": (128, h, w, t, sigma)
+       for cell, levels in K12_LEVELS.items() for lv, h, w, t, sigma in levels},
+    "t1": (2, 33, 130, 1, 0.0),
+    "n_is_h_minus_1": (3, 5, 300, 9, 1.8),
+    "n_is_w_minus_1": (3, 300, 5, 9, 1.8),
+    "ragged_t5": (2, 33, 130, 5, 0.9),
+    **{f"tile_plus_one_t{t}": (2, 33, 130 - t, t, 0.3 * t) for t in (3, 5, 7, 9)},
+    "b1_t9": (1, 801, 801, 9, 1.8),
+    "generic_t11": (2, 40, 300, 11, 2.0),
+    "generic_t13_n_is_h_minus_1": (2, 7, 200, 13, 2.0),
+    "generic_t257": (2, 200, 300, 257, 40.0),
+    "grid_z_past_limit": (40000, 2, 3, 3, 0.0),
+    "grid_y_past_limit": (1, 2_100_000, 2, 3, 0.0),
+}
 # one dependent step of K9 as reckoned for its chain bound: two 5-level warp
 # shuffle trees (~30 cycles a level), three barriers (~40 cycles each) and
 # the pick's IoU (~25 dependent float32 operations at 4 cycles, a division
@@ -615,6 +652,9 @@ SOURCES = {
                              "nsof_tpu/ops/farneback_fast.py::poly_expansion_fast (not a "
                              "TPU kernel: XLA depthwise convolutions)",
                              "poly_expansion_level_kernel"),
+    "pyramid_blur": ("nsof_tpu_torch/csrc/pyramid_blur.cu",
+                     "nsof_tpu/ops/farneback_fast.py:1119 (not a TPU kernel: XLA depthwise "
+                     "convolutions)", "pyramid_blur_kernel"),
 }
 
 
@@ -857,6 +897,7 @@ def plain_route():
     names = {"crop_windows_batch": (troi, troi.crop_windows),
              "poly_expansion": (tff, tff._poly_expansion_plain),
              "poly_expansion_pair": (tff, tff._poly_expansion_pair_plain),
+             "pyramid_blur": (tff, tff._pyramid_blur_plain),
              "update_matrices_sep": (tff, tff._update_matrices_sep_plain),
              "fused_box_update": (tff, tff._fused_box_update_plain),
              "update_matrices": (tff, tff._update_matrices_plain),
@@ -1389,6 +1430,24 @@ def check_k11(errs: dict, dev) -> None:
         del i0, i1, r0, r1p
     errs["poly_expansion_level"] = 0
     emit({"phase": "check", "kernel": "poly_expansion_level", "cases": list(K11_CASES),
+          "max_abs_err": 0, "tolerance": "0, compared by bits"})
+
+
+def check_k12(errs: dict, dev) -> None:
+    """K12 against its plain version at every K12_CASES case, both images
+    of the level in one launch, compared by bits."""
+    for name, (b, h, w, t, sigma) in K12_CASES.items():
+        i0, i1 = k11_images(b, h, w, len(name), dev)
+        k = _gaussian_blur_kernel(t, sigma)
+        launches, got = launched_by(lambda: tff.pyramid_blur(i0, i1, k))
+        if launches != {"pyramid_blur": 1}:
+            raise AssertionError(f"K12 {name}: launches {launches}")
+        for g, ref in zip(got, tff._pyramid_blur_plain(i0, i1, k)):
+            if not bits_equal(g, ref):
+                raise AssertionError(f"K12 {name}: differs from the plain blur")
+        del i0, i1, got
+    errs["pyramid_blur"] = 0
+    emit({"phase": "check", "kernel": "pyramid_blur", "cases": list(K12_CASES),
           "max_abs_err": 0, "tolerance": "0, compared by bits"})
 
 
@@ -3872,6 +3931,55 @@ def kernel_times(launches: dict, errs: dict, dev, prev) -> list[dict]:
     return entries
 
 
+def k12_times(errs: dict, dev) -> list[dict]:
+    """K12's lines: a call's pad and blur, both images a level, B = AD_B,
+    at autodriving's four levels and at grasp's three (K12_LEVELS); 8 bytes
+    a pixel (read once, written once) and 4·t operations.  The library
+    yardstick: one F.conv2d a level and image on the reflect-padded image
+    with the taps' 2-D outer product, TF32 off (the same function, summed in
+    another order).  Each line's launches are its call's, counted."""
+    entries = []
+    b = AD_B
+    for cell, levels in K12_LEVELS.items():
+        imgs = [k11_images(b, h, w, h + t, dev) for _, h, w, t, _ in levels]
+        taps = [_gaussian_blur_kernel(t, sigma) for *_, t, sigma in levels]
+        filters = [torch.from_numpy(np.outer(k, k).astype(np.float32))[None, None].to(dev)
+                   for k in taps]
+        px = sum(2 * b * h * w for _, h, w, _, _ in levels)
+        ops = sum(2 * b * h * w * 4 * t for _, h, w, t, _ in levels)
+
+        def call():
+            return [tff.pyramid_blur(*im, k) for im, k in zip(imgs, taps)]
+
+        def library():
+            return [[torch.nn.functional.conv2d(torch.nn.functional.pad(
+                i[:, None], (len(k) // 2,) * 4, mode="reflect"), f)[:, 0] for i in im]
+                for im, k, f in zip(imgs, taps, filters)]
+
+        counted, got = launched_by(call)
+        if counted != {"pyramid_blur": len(levels)}:
+            raise AssertionError(f"K12 a call's {cell} levels: launches {counted}")
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib_err = max((o - r).abs().max().item()
+                          for pair, ref in zip(got, library()) for o, r in zip(pair, ref))
+            if not lib_err <= 1e-3:
+                raise AssertionError(f"the conv2d yardstick differs from K12 by {lib_err}")
+            del got
+            kernel_entry(counted, errs, entries, "pyramid_blur", call,
+                         lambda: [tff._pyramid_blur_plain(*im, k) for im, k in zip(imgs, taps)],
+                         library, px * 4 * 2, ops, b, plain_iters=3, cell=cell,
+                         levels=[list(lv[:4]) for lv in levels], library_max_abs_err=lib_err,
+                         per_level_ms={f"level{lv[0]}": time_ms(lambda: tff.pyramid_blur(*im, k))
+                                       for lv, im, k in zip(levels, imgs, taps)})
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        del imgs, filters
+        torch.cuda.synchronize()
+    return entries
+
+
 def k8_time(launches: dict, errs: dict, dev) -> dict:
     """K8's line at the stream's shapes (129 compressed frames on the 6×8
     grid, n_substeps 1000), its plain version at K8_PLAIN_SUBSTEPS, and its
@@ -3930,6 +4038,7 @@ def main() -> None:
     check_k8(errs, dev)
     check_k10(errs, dev)
     check_k11(errs, dev)
+    check_k12(errs, dev)
 
     # ── the paths at full width ──
     launches = {}
@@ -4014,6 +4123,7 @@ def main() -> None:
     # ── per-kernel times at each path's level-0 shapes ──
     _, prev, _ = bench_inputs(B_MAIN, 0, dev)
     kernels = kernel_times(launches, errs, dev, prev)
+    kernels.extend(k12_times(errs, dev))
     kernels.append(k8_time(launches, errs, dev))
     kernels.append(deep_k1_time(deep_launches, dev))
     kernels.append(k9_time(detect_launches, errs, k9_args))

@@ -17,10 +17,17 @@ runs per pyramid level
   2×2 system for the flow, and either rebuild M from it
   (``emit='matrices'``) or write the flow (``emit='flow'``, last one).
 
+Its levels k ≥ 1 come from K12 :func:`pyramid_blur` (both images' reflect-101
+pad and Gaussian blur in one launch, bit for bit the plain version's), then
+a bilinear resize.
+
 The level route (``'pallas_sep'``, ``'pallas'``, ``'xla'``;
 ``_farneback_fast_levels``) blurs the original frames for every level,
 expands them and iterates a float32 system M on the level's own extent:
 
+- K12 :func:`pyramid_blur` once, both frames' reflect-101 pad and blur,
+  then a bilinear resize; the ``'xla'`` route runs the plain version
+  :func:`_pyramid_blur_plain`;
 - K11 :func:`poly_expansion_pair` once, both frames' expansions in tap
   order, bit for bit the plain version's; the ``'xla'`` route runs the
   plain version :func:`_poly_expansion_level_plain`;
@@ -697,6 +704,69 @@ def _box_solve_dw(m: torch.Tensor, winsize: int):
     return _solve(_tap_sum(v, ones, -1, w) * (1.0 / (winsize * winsize)))
 
 
+# ── K12: the pyramid's reflect-101 pad and blur ───────────────────────────
+
+
+def _pyramid_blur_plain(img0: torch.Tensor, img1: torch.Tensor, k):
+    """Plain version of K12: each ``[B, H, W]`` image reflect-101 padded by
+    ``len(k) // 2`` and blurred by the separable taps ``k``, vertical pass
+    first, each sum in tap order."""
+    n = len(k) // 2
+    return _blur_valid(_reflect_pad(img0, n), k), _blur_valid(_reflect_pad(img1, n), k)
+
+
+def _blur_taps(img0: torch.Tensor, img1: torch.Tensor, k) -> np.ndarray:
+    """``k`` as float32 taps, after checking what K12 takes: an odd number of
+    taps, two contiguous float32 ``[B, H, W]`` images of one shape on one
+    device, and n = len(k) // 2 below H and W (the reflect pad's own
+    condition).  Raises ``ValueError`` otherwise."""
+    taps = np.ascontiguousarray(k, np.float32)
+    if taps.ndim != 1 or len(taps) % 2 == 0:
+        raise ValueError(f"the blur takes an odd number of taps, got shape {taps.shape}")
+    if img0.dim() != 3:
+        raise ValueError(f"img0: expected [B, H, W], got {tuple(img0.shape)}")
+    _check(img0, "img0", torch.float32, img0.shape, img0.device)
+    _check(img1, "img1", torch.float32, img0.shape, img0.device)
+    n = len(taps) // 2
+    if n >= img0.shape[1] or n >= img0.shape[2]:
+        raise ValueError(f"a reflect pad of {n} needs H and W above {n}, got "
+                         f"{tuple(img0.shape[1:])}")
+    return taps
+
+
+@functools.lru_cache(maxsize=64)
+def _taps_tensor(taps: tuple, device: str) -> torch.Tensor:
+    return torch.tensor(taps, dtype=torch.float32, device=device)
+
+
+def _pyramid_blur_cuda(img0: torch.Tensor, img1: torch.Tensor, taps: np.ndarray):
+    b, h, w = img0.shape
+    taps_dev = _taps_tensor(tuple(taps.tolist()), str(img0.device))
+    out0, out1 = torch.empty_like(img0), torch.empty_like(img1)
+    fn = _build.launcher("pyramid_blur", 6, 4)
+    _build.check(fn(
+        img0.data_ptr(), img1.data_ptr(), taps_dev.data_ptr(), taps.ctypes.data,
+        out0.data_ptr(), out1.data_ptr(), b, h, w, len(taps), _stream(img0),
+    ), "pyramid_blur")
+    _build.LAUNCHES["pyramid_blur"] += 1
+    return out0, out1
+
+
+def pyramid_blur(img0: torch.Tensor, img1: torch.Tensor, k):
+    """K12: a pyramid level's two ``[B, H, W]`` float32 images, each
+    reflect-101 padded by n = len(k) // 2 and blurred by the odd-length
+    separable taps ``k`` → two ``[B, H, W]`` planes.
+
+    Bit for bit :func:`_pyramid_blur_plain`, which a CPU tensor takes; a
+    CUDA tensor launches K12 (``csrc/pyramid_blur.cu``) once for both
+    images.  Raises ``ValueError`` for an even number of taps, n ≥ H or W,
+    or images that are not contiguous float32 of one shape on one device."""
+    taps = _blur_taps(img0, img1, k)
+    if img0.is_cuda:
+        return _pyramid_blur_cuda(img0, img1, taps)
+    return _pyramid_blur_plain(img0, img1, taps)
+
+
 # ── pyramid glue ──────────────────────────────────────────────────────────
 
 
@@ -710,7 +780,8 @@ def _farneback_fast_fused(img0, img1, params: FarnebackParams, radius: int,
     ``[B, H, W]``, the system M stored in ``m_dtype``.  Level k ≥ 1 images
     are built fine→coarse as a cascade: level 1 blurs the original (cv2's
     construction), deeper levels blur the previous level with the
-    incremental sigma."""
+    incremental sigma; K12 pads and blurs both images of a level, then each
+    is resized."""
     b, h, w = img0.shape
     levels = _effective_levels(h, w, params.levels, params.pyr_scale)
     lvl_imgs = {}
@@ -731,10 +802,10 @@ def _farneback_fast_fused(img0, img1, params: FarnebackParams, radius: int,
             s_blur = float(np.sqrt(max(tgt * tgt - acc * acc, 1e-12)))
             sz = max(2 * int(np.ceil(3.0 * s_blur)) + 1, 3)
         gk = _gaussian_blur_kernel(sz, s_blur)
-        nb = sz // 2
         with span("nsof.farneback.pyramid"):
-            cur0 = _resize_hwb(_blur_valid(_reflect_pad(cur0, nb), gk), hk_, wk_)
-            cur1 = _resize_hwb(_blur_valid(_reflect_pad(cur1, nb), gk), hk_, wk_)
+            cur0, cur1 = pyramid_blur(cur0, cur1, gk)
+            cur0 = _resize_hwb(cur0, hk_, wk_)
+            cur1 = _resize_hwb(cur1, hk_, wk_)
         lvl_imgs[k] = (cur0, cur1)
 
     dx = dy = None
@@ -787,13 +858,15 @@ def _farneback_fast_levels(img0, img1, params: FarnebackParams, radius: int,
     on ``[B, H, W]`` float32 frames → (dx, dy) ``[B, H, W]``.
 
     Every level blurs the original frames with its own sigma (reflect-101
-    pad, then resize), expands both (r1 padded by radius + 1; K11 once a
-    level, the plain version on the ``'xla'`` route), and iterates the
-    float32 system: one update, then ``iterations`` × (solve, and update
-    for all but the last)."""
+    pad and blur, K12 once a level, then resize), expands both (r1 padded
+    by radius + 1; K11 once a level), and iterates the float32 system: one
+    update, then ``iterations`` × (solve, and update for all but the last).
+    The ``'xla'`` route runs the plain versions of K11 and K12."""
     b, h, w = img0.shape
     e = radius + 1
     if kernel_mode == "xla":
+        blur = _pyramid_blur_plain
+
         def expand(i0, i1):
             return _poly_expansion_pair_plain(i0, i1, params.poly_n, params.poly_sigma, e)
 
@@ -804,6 +877,7 @@ def _farneback_fast_levels(img0, img1, params: FarnebackParams, radius: int,
             return _box_solve_dw(m, params.winsize)
     else:
         sep = kernel_mode == "pallas_sep"
+        blur = pyramid_blur
 
         def expand(i0, i1):
             return poly_expansion_pair(i0, i1, params.poly_n, params.poly_sigma, e)
@@ -822,12 +896,12 @@ def _farneback_fast_levels(img0, img1, params: FarnebackParams, radius: int,
         smooth_sz = max(_cv_round(sigma * 5) | 1, 3)
         wk = _cv_round(w * scale)
         hk = _cv_round(h * scale)
-        n = smooth_sz // 2
         gk = _gaussian_blur_kernel(smooth_sz, sigma)
         with span("nsof.farneback.pyramid"):
             dx, dy = _upscale_flow(dx, dy, b, hk, wk, params.pyr_scale, img0.device)
-            i0 = _resize_hwb(_blur_valid(_reflect_pad(img0, n), gk), hk, wk)
-            i1 = _resize_hwb(_blur_valid(_reflect_pad(img1, n), gk), hk, wk)
+            i0, i1 = blur(img0, img1, gk)
+            i0 = _resize_hwb(i0, hk, wk)
+            i1 = _resize_hwb(i1, hk, wk)
         with span("nsof.farneback.expand"):
             r0, r1p = expand(i0, i1)
         with span("nsof.farneback.update"):

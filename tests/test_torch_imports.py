@@ -408,6 +408,7 @@ def test_wrappers_raise_without_kernel_library(cuda_device, monkeypatch, tmp_pat
                              1.0, np.ones((3, 3), np.uint8), 1),
         lambda: tff.poly_expansion_fast(img, 10, 1.05),
         lambda: tff.poly_expansion_pair(img, img, 10, 1.05, 4),
+        lambda: tff.pyramid_blur(img, img, np.asarray([0.25, 0.5, 0.25], np.float32)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError):

@@ -19,8 +19,8 @@ GT_OWL_F32_REL, no kernel of the port launched.  ``OwlVitBoxProposer`` and
 ``TransformersSamSegmenter`` built without a device, from tiny local
 Hugging Face directories (``tests/tiny_hf.py``), run on the card (skipped
 where ``transformers`` is missing).  ``make_sharded_seg_batch`` on
-``make_mesh(1)`` at world size 1 over NCCL (B = 4, ``'fused'``) launches K1–K4, K10
-and equals ``seg_batch_fast`` bit for bit.
+``make_mesh(1)`` at world size 1 over NCCL (B = 4, ``'fused'``) launches K1–K4, K10,
+K12 and equals ``seg_batch_fast`` bit for bit.
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_paths_cuda.py`` (the card's machine has no jax, which the
@@ -257,8 +257,8 @@ def test_sharded_seg_over_nccl(cuda_device):
         got = make_sharded_seg_batch(mesh, cfg, kernel_mode="fused")(mem, prev, nxt)
         torch.cuda.synchronize()
         launched = {k for k, v in _build.LAUNCHES.items() if v}
-        assert launched == {"crop_windows", "poly_expansion", "update_matrices_sep",
-                            "fused_box_update", "seg_head"}
+        assert launched == {"crop_windows", "pyramid_blur", "poly_expansion",
+                            "update_matrices_sep", "fused_box_update", "seg_head"}
         want = seg_batch_fast(mem, prev, nxt, cfg, kernel_mode="fused")
         for key in ("mask", "box", "any_active"):
             assert torch.equal(got[key], want[key]), key

@@ -9,7 +9,8 @@ both images of a level in one launch with r1's pad; a 7 × 9 image (smaller
 than 2n + 1 = 21); B = 1; PyTorch's ``add_(x, alpha=k)`` rounding once (the
 kernel's FMA taps rest on it); ``farneback_fast`` at the autodriving preset
 through 'auto' (one K11 launch a level, the flow equal bit for bit to the
-flow with the plain expansion put in) and through 'xla' (no K11 launch).
+flow with the plain expansion put in) and through 'xla' (no K11 launch, and
+no K12: the route's pyramid blur is plain torch too).
 
 On the CPU (unmarked): the plain version's pad is the edge extension of
 its unpadded result; the kernel's tiling, mirrored here in PyTorch (the
@@ -307,4 +308,5 @@ def test_farneback_xla_launches_no_k11(cuda_device):
     tff.farneback_fast(prev[:, :200, :200].contiguous(), nxt[:, :200, :200].contiguous(),
                        AD, 1, "xla")
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["poly_expansion_level"] == _build.LAUNCHES["pyramid_blur"] == 0
     assert not any(_build.LAUNCHES.values())
