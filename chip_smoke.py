@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1–K12) from ``nsof_tpu_torch/csrc``, holds
+Builds the port's CUDA kernels (K1–K13) from ``nsof_tpu_torch/csrc``, holds
 each, and the float32 forms of K3 and K4, against its plain PyTorch version
 on the card (K8, the stream's device scan, at ``K8_CASES``; K9, the YOLO
 post step's NMS, at ``K9_CASES``; K10, the seg head, at ``K10_CASES``; K11,
 the level route's expansion, at ``K11_CASES``; K12, the pyramid's pad and
-blur, at ``K12_CASES``, by bits), then drives three paths of
+blur, at ``K12_CASES``; K13, the seg step's scatter, at ``K13_CASES``; by
+bits), then drives three paths of
 ``seg_batch_fast``:
 
 - the main path on bench.py's 640×480 workload (256×384 window, grasp
@@ -271,12 +272,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 EXPECTED_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
                      "update_matrices_sep": 4, "fused_box_update": 12, "pyramid_blur": 3}
-# the paths through the seg head (seg_batch_fast, seg_head_window_batch) add
-# K10 once a call; the tracking and prediction heads run none
-SEG_LAUNCHES = {**EXPECTED_LAUNCHES, "seg_head": 1}
+# seg_batch_fast adds K10 (the seg head) and K13 (its scatter) once a call; the
+# tracking and prediction heads run neither
+SEG_LAUNCHES = {**EXPECTED_LAUNCHES, "seg_head": 1, "scatter_window": 1}
 F32_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
                 "update_matrices_sep_f32": 4, "fused_box_update_f32": 12, "pyramid_blur": 3,
-                "seg_head": 1}
+                "seg_head": 1, "scatter_window": 1}
 # K1 beyond the main path: name → (frames shape, dtype, window, oys, oxs);
 # origins ≡ 0, 1, 15 (mod 16), ragged widths, 1-, 2-, 4- and 12-byte
 # elements, negative and clamped origins, B = 1
@@ -333,9 +334,10 @@ AD_B = 128
 AD_B_CHECK = 4
 AD_LAUNCHES = {
     "auto": {"crop_windows": 2, "pyramid_blur": 4, "poly_expansion_level": 4,
-             "update_matrices_sep_level": 12, "box_solve": 12, "seg_head": 1},
+             "update_matrices_sep_level": 12, "box_solve": 12, "seg_head": 1,
+             "scatter_window": 1},
     "pallas": {"crop_windows": 2, "pyramid_blur": 4, "poly_expansion_level": 4,
-               "update_matrices": 12, "box_solve": 12, "seg_head": 1},
+               "update_matrices": 12, "box_solve": 12, "seg_head": 1, "scatter_window": 1},
 }
 # the tracking and prediction paths: batch, and the labelling's most host
 # synchronisations a call (one every 8 of at most 256 sweeps); the tracking
@@ -598,6 +600,33 @@ K12_CASES = {
     "grid_z_past_limit": (40000, 2, 3, 3, 0.0),
     "grid_y_past_limit": (1, 2_100_000, 2, 3, 0.0),
 }
+# K13 against its plain version, the mask and the flow frame in one launch:
+# name → (B, H, W, wh, ww, boxes, planes).  ``boxes`` ("cells", px): the cells'
+# merged boxes, 1–6 × 1–4 cells of px pixels with 20 px more a side, clamped,
+# one sample in 8 inactive with a zero box, at window_origin's origins;
+# "edges": origins at each frame edge, past it (clamped) and negative, boxes
+# that are the whole frame, of zero area, past the window and random, and
+# inactive samples that keep a box.  ``planes``: "canvas", dx and dy as views
+# of a [B, 2, wh + 3, ww + 5] canvas (the fused route's strides); "dense",
+# contiguous.  The cells' shapes at B = 128; tabletennis' 160² and uav's 161²
+# windows on their own frames and on a 480×640 one; odd widths (no row
+# 16-byte aligned); a width of 1; B = 1; frames below a tile (4096 pixels),
+# so that a tile spans many samples.
+K13_CASES = {
+    "grasp_b128": (128, 1920, 1080, 1920, 1080, ("cells", 80), "canvas"),
+    "autodriving_b128": (128, 801, 801, 801, 801, ("cells", 200), "dense"),
+    "tabletennis_own_frame": (16, 160, 160, 160, 160, ("cells", 10), "canvas"),
+    "uav_own_frame": (16, 161, 161, 161, 161, ("cells", 40), "dense"),
+    "tabletennis_win_on_480x640": (16, 480, 640, 160, 160, "edges", "dense"),
+    "uav_win_on_480x640": (16, 480, 640, 161, 161, "edges", "canvas"),
+    "odd_widths": (11, 37, 53, 21, 33, "edges", "canvas"),
+    "width_1": (8, 300, 1, 100, 1, "edges", "dense"),
+    "b1": (1, 801, 801, 801, 801, ("cells", 200), "canvas"),
+    "tiny_frames": (50, 7, 9, 5, 6, "edges", "dense"),
+}
+# K13's timed shapes: the cells' frames and windows, B = 128, with the cells'
+# boxes and with the whole frame in the box
+K13_SHAPES = {"grasp": (128, 1920, 1080, 80), "autodriving": (128, 801, 801, 200)}
 # one dependent step of K9 as reckoned for its chain bound: two 5-level warp
 # shuffle trees (~30 cycles a level), three barriers (~40 cycles each) and
 # the pick's IoU (~25 dependent float32 operations at 4 cycles, a division
@@ -655,6 +684,9 @@ SOURCES = {
     "pyramid_blur": ("nsof_tpu_torch/csrc/pyramid_blur.cu",
                      "nsof_tpu/ops/farneback_fast.py:1119 (not a TPU kernel: XLA depthwise "
                      "convolutions)", "pyramid_blur_kernel"),
+    "scatter_window": ("nsof_tpu_torch/csrc/scatter_window.cu",
+                       "nsof_tpu/ops/roi.py:318 (not a TPU kernel: XLA "
+                       "dynamic_update_slice)", "scatter_window_kernel"),
 }
 
 
@@ -904,7 +936,8 @@ def plain_route():
              "box_solve": (tff, tff._box_solve_plain),
              "scan_device": (tstream, tfs.scan_device_plain),
              "nms_batch": (tcomp, tcomp.nms),
-             "seg_head": (tmf, tmf.seg_head_plain)}
+             "seg_head": (tmf, tmf.seg_head_plain),
+             "scatter_seg_windows": (troi, troi.scatter_seg_windows_plain)}
     saved = {name: getattr(mod, name) for name, (mod, _) in names.items()}
     for name, (mod, plain) in names.items():
         setattr(mod, name, plain)
@@ -1448,6 +1481,89 @@ def check_k12(errs: dict, dev) -> None:
         del i0, i1, got
     errs["pyramid_blur"] = 0
     emit({"phase": "check", "kernel": "pyramid_blur", "cases": list(K12_CASES),
+          "max_abs_err": 0, "tolerance": "0, compared by bits"})
+
+
+def scatter_inputs(b: int, h: int, w: int, wh: int, ww: int, boxes, planes: str, seed: int,
+                   dev) -> tuple:
+    """K13's arguments (mask_win, dx, dy, box, active, oys, oxs, h, w) as
+    K13_CASES describes them: random mask bytes and flow planes drawn on
+    ``dev`` (about 1 % +0.0, 1 % −0.0 and 0.1 % +inf), the boxes, origins and
+    ``active`` from numpy's ``seed``."""
+    rng = np.random.default_rng(seed)
+    box = np.zeros((b, 4), np.int64)
+    act = np.ones(b, bool)
+    if boxes == "edges":
+        origins = [(0, 0), (h - wh, w - ww), (0, w - ww), (h - wh, 0), (h, w), (-5, -7),
+                   (-h, -w), (-1, -1), (1000, -1000), (h + 3, -w - 9)]
+        oy = np.array([origins[i][0] if i < len(origins) else rng.integers(-h, 2 * h)
+                       for i in range(b)])
+        ox = np.array([origins[i][1] if i < len(origins) else rng.integers(-w, 2 * w)
+                       for i in range(b)])
+        for i in range(b):
+            kind = i % 5
+            if kind == 0:  # the whole frame
+                box[i] = (0, 0, w, h)
+            elif kind == 1:  # zero area
+                box[i] = (ox[i] + 1, oy[i], ox[i] + 1, oy[i] + wh)
+            elif kind == 2:  # past the window on every side (at the origin as given)
+                box[i] = (ox[i] - 3, oy[i] - 2, ox[i] + ww + 4, oy[i] + wh + 5)
+            else:  # random, inactive with its box on kind 4
+                x0, y0 = rng.integers(-5, w + 1), rng.integers(-5, h + 1)
+                box[i] = (x0, y0, x0 + rng.integers(0, w + 1), y0 + rng.integers(0, h + 1))
+                act[i] = kind == 3
+    else:
+        px = boxes[1]
+        for i in range(b):
+            if i % 8 == 7:
+                act[i] = False
+                continue
+            cx, cy = rng.integers(0, max(w // px, 1)), rng.integers(0, max(h // px, 1))
+            nx, ny = rng.integers(1, 7), rng.integers(1, 5)
+            box[i] = (max(cx * px - 20, 0), max(cy * px - 20, 0), min((cx + nx) * px + 20, w),
+                      min((cy + ny) * px + 20, h))
+        oy = box[:, 1].clip(0, max(h - wh, 0))  # window_origin's
+        ox = box[:, 0].clip(0, max(w - ww, 0))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask_win = torch.randint(0, 256, (b, wh, ww), generator=g, device=dev, dtype=torch.uint8)
+    pad = (3, 5) if planes == "canvas" else (0, 0)
+    canvas = torch.randn((b, 2, wh + pad[0], ww + pad[1]), generator=g, device=dev) * 4
+    u = torch.rand(canvas.shape, generator=g, device=dev)
+    canvas[u < 0.01] = 0.0
+    canvas[(u >= 0.01) & (u < 0.02)] = -0.0
+    canvas[(u >= 0.02) & (u < 0.021)] = float("inf")
+    del u
+    dx, dy = canvas[:, 0, :wh, :ww], canvas[:, 1, :wh, :ww]
+    if planes == "dense":
+        dx, dy = dx.contiguous(), dy.contiguous()
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
+    return (mask_win, dx, dy, i32(box), torch.from_numpy(act).to(dev), i32(oy), i32(ox), h, w)
+
+
+def k13_inputs(name: str, dev, seed: int = 0) -> tuple:
+    """:func:`scatter_inputs` of K13_CASES[name]."""
+    return scatter_inputs(*K13_CASES[name], seed=seed + len(name), dev=dev)
+
+
+def check_k13(errs: dict, dev) -> None:
+    """K13 against its plain version at every K13_CASES case, with and
+    without the flow, one launch a call, compared by bits."""
+    for name in K13_CASES:
+        args = k13_inputs(name, dev)
+        for return_flow in (True, False):
+            launches, got = launched_by(lambda: troi.scatter_seg_windows(*args, return_flow))
+            if launches != {"scatter_window": 1}:
+                raise AssertionError(f"K13 {name}: launches {launches}")
+            want = troi.scatter_seg_windows_plain(*args, return_flow)
+            if not bits_equal(got[0], want[0]) or (
+                    return_flow and not bits_equal(got[1], want[1])) or (
+                    not return_flow and got[1] is not None):
+                raise AssertionError(f"K13 {name} (flow {return_flow}): differs from the "
+                                     "plain scatter")
+            del got, want
+        del args
+    errs["scatter_window"] = 0
+    emit({"phase": "check", "kernel": "scatter_window", "cases": list(K13_CASES),
           "max_abs_err": 0, "tolerance": "0, compared by bits"})
 
 
@@ -3980,6 +4096,46 @@ def k12_times(errs: dict, dev) -> list[dict]:
     return entries
 
 
+def k13_times(errs: dict, dev) -> list[dict]:
+    """K13's lines at the cells' shapes (K13_SHAPES): a call's scatter of the
+    mask and the flow with the cells' boxes, and with the whole frame in the
+    box; the mask alone.  Two bounds: the 9 bytes a pixel written, and those
+    plus the whole window read (9 bytes a pixel more).  The library
+    yardstick: ``Tensor.copy_`` of the mask window and of dx and dy into
+    zero frames (no negation, no box)."""
+    entries = []
+    for cell, (b, h, w, px) in K13_SHAPES.items():
+        args = scatter_inputs(b, h, w, h, w, ("cells", px), "canvas", 0, dev)
+        mask_win, dx, dy, box = args[:4]
+        whole = (*args[:3], torch.tensor([[0, 0, w, h]] * b, dtype=torch.int32, device=dev),
+                 torch.ones(b, dtype=torch.bool, device=dev), *args[5:])
+        zm = torch.zeros((b, h, w), dtype=torch.uint8, device=dev)
+        zf = torch.zeros((b, h, w, 2), dtype=torch.float32, device=dev)
+
+        def library():
+            zm.copy_(mask_win)
+            zf[..., 0].copy_(dx)
+            zf[..., 1].copy_(dy)
+
+        counted, _ = launched_by(lambda: troi.scatter_seg_windows(*args, True))
+        if counted != {"scatter_window": 1}:
+            raise AssertionError(f"K13 at {cell}: launches {counted}")
+        px_n = b * h * w
+        area = float(((box[:, 2] - box[:, 0]) * (box[:, 3] - box[:, 1])).sum()) / px_n
+        write_ms, _ = bound_ms(px_n * 9, 0)
+        kernel_entry(counted, errs, entries, "scatter_window",
+                     lambda: troi.scatter_seg_windows(*args, True),
+                     lambda: troi.scatter_seg_windows_plain(*args, True), library,
+                     px_n * 18, 0, b, plain_iters=3, cell=cell, frame=[h, w],
+                     box_share_of_frame=area, bound_write_only_ms=write_ms,
+                     whole_box_ms=time_ms(lambda: troi.scatter_seg_windows(*whole, True)),
+                     mask_only_ms=time_ms(lambda: troi.scatter_seg_windows(*args, False)),
+                     bound_mask_only_ms=bound_ms(px_n, 0)[0])
+        del args, whole, mask_win, dx, dy, box, zm, zf
+        torch.cuda.empty_cache()
+    return entries
+
+
 def k8_time(launches: dict, errs: dict, dev) -> dict:
     """K8's line at the stream's shapes (129 compressed frames on the 6×8
     grid, n_substeps 1000), its plain version at K8_PLAIN_SUBSTEPS, and its
@@ -4039,6 +4195,7 @@ def main() -> None:
     check_k10(errs, dev)
     check_k11(errs, dev)
     check_k12(errs, dev)
+    check_k13(errs, dev)
 
     # ── the paths at full width ──
     launches = {}
@@ -4124,6 +4281,7 @@ def main() -> None:
     _, prev, _ = bench_inputs(B_MAIN, 0, dev)
     kernels = kernel_times(launches, errs, dev, prev)
     kernels.extend(k12_times(errs, dev))
+    kernels.extend(k13_times(errs, dev))
     kernels.append(k8_time(launches, errs, dev))
     kernels.append(deep_k1_time(deep_launches, dev))
     kernels.append(k9_time(detect_launches, errs, k9_args))

@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "crop_windows", "poly_expansion", "update_matrices_sep",
     "fused_box_update", "update_matrices", "box_solve", "device_scan", "nms",
-    "seg_head", "poly_expansion_level", "pyramid_blur",
+    "seg_head", "poly_expansion_level", "pyramid_blur", "scatter_window",
 )
 # one counter per kernel wrapper
 LAUNCH_KEYS = (
@@ -58,6 +58,7 @@ LAUNCH_KEYS = (
     "seg_head",                    # K10, the main path's seg head (no TPU kernel)
     "poly_expansion_level",        # K11, the level route's expansion (no TPU kernel)
     "pyramid_blur",                # K12, the pyramid's pad and blur (no TPU kernel)
+    "scatter_window",              # K13, the seg step's scatter (no TPU kernel)
 )
 
 LAUNCHES = {name: 0 for name in LAUNCH_KEYS}

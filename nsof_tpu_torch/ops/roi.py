@@ -10,6 +10,10 @@ The batched crop :func:`crop_windows_batch` is kernel K1 (``csrc/
 crop_windows.cu``).  It crops at the exact origins: the JAX package floors
 them to the (32, 128) uint8 tiling only on the TPU, where Mosaic's DMA
 requires it; its CPU path, like this one, uses the origins as given.
+The seg step's scatter of its mask and flow windows into their frames,
+:func:`scatter_seg_windows`, is kernel K13 (``csrc/scatter_window.cu``);
+:func:`scatter_window`, the plain scatter of one window, stays as it is for
+the exact path, the deep path and the other heads.
 """
 
 from __future__ import annotations
@@ -216,6 +220,106 @@ def scatter_window(full: torch.Tensor, window: torch.Tensor, box: torch.Tensor,
     out = full.clone()
     out[bi, rows, cols] = torch.where(mask, window, full[bi, rows, cols])
     return out
+
+
+def scatter_seg_windows_plain(mask_win, dx, dy, box, active, oys, oxs, h: int, w: int,
+                              return_flow: bool):
+    """Plain version of K13 (:func:`scatter_seg_windows`): the mask window
+    into a zero frame, and with ``return_flow`` the negated flow, zeroed
+    outside the box and for inactive samples, into another, each through
+    :func:`scatter_window`."""
+    b = mask_win.shape[0]
+    dev = mask_win.device
+    mask = scatter_window(torch.zeros((b, h, w), dtype=torch.uint8, device=dev), mask_win,
+                          box, oys, oxs)
+    if not return_flow:
+        return mask, None
+    inbox = window_box_mask(box, oys, oxs, *mask_win.shape[1:]) & active[:, None, None]
+    # negated (optical_flow_seg.py:461), zero outside the box
+    flow_win = torch.stack([-dx, -dy], dim=-1)
+    flow_win = torch.where(inbox[..., None], flow_win, torch.zeros_like(flow_win))
+    flow = scatter_window(torch.zeros((b, h, w, 2), dtype=torch.float32, device=dev),
+                          flow_win, box, oys, oxs)
+    return mask, flow
+
+
+# K13's limit on a frame's pixels: it divides offsets below 2**31 by H·W
+SCATTER_MAX_FRAME_PIXELS = 2**30
+
+
+def _check_scatter_args(mask_win, dx, dy, box, active, oys, oxs, h, w, return_flow):
+    """Raise ``ValueError`` for what K13 does not take (on either device, so
+    that both refuse alike)."""
+    if mask_win.dim() != 3 or mask_win.dtype != torch.uint8:
+        raise ValueError(f"scatter: mask_win must be uint8 [B, wh, ww], got {mask_win.dtype} "
+                         f"{tuple(mask_win.shape)}")
+    b, wh, ww = mask_win.shape
+    dev = mask_win.device
+    if not mask_win.is_contiguous():
+        raise ValueError("scatter: mask_win must be contiguous")
+    if wh > h or ww > w:
+        raise ValueError(f"scatter: window {wh}x{ww} exceeds frame {h}x{w}")
+    if h * w > SCATTER_MAX_FRAME_PIXELS:
+        raise ValueError(f"scatter: frame {h}x{w} beyond {SCATTER_MAX_FRAME_PIXELS} pixels")
+    for name, t, dtype, shape in (("box", box, torch.int32, (b, 4)),
+                                  ("oys", oys, torch.int32, (b,)),
+                                  ("oxs", oxs, torch.int32, (b,)),
+                                  ("active", active, torch.bool, (b,))):
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"scatter: {name} must be {dtype} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"scatter: {name} must be contiguous")
+    if not return_flow:
+        return
+    for name, t in (("dx", dx), ("dy", dy)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, wh, ww) or t.device != dev:
+            raise ValueError(f"scatter: {name} must be float32 {(b, wh, ww)} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if dx.stride() != dy.stride() or (ww > 1 and dx.stride(2) != 1):
+        raise ValueError("scatter: dx and dy must share strides, each row contiguous")
+    if max(dx.stride()) >= 2**31:
+        raise ValueError(f"scatter: dx strides {dx.stride()} too large")
+
+
+def _scatter_seg_windows_cuda(mask_win, dx, dy, box, active, oys, oxs, h, w, return_flow):
+    b, wh, ww = mask_win.shape
+    dev = mask_win.device
+    mask = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
+    flow = (torch.empty((b, h, w, 2), dtype=torch.float32, device=dev) if return_flow
+            else None)
+    fn = _build.launcher("scatter_window", 9, 7)
+    _build.check(fn(
+        mask_win.data_ptr(), dx.data_ptr() if return_flow else None,
+        dy.data_ptr() if return_flow else None, box.data_ptr(), oys.data_ptr(),
+        oxs.data_ptr(), active.data_ptr(), mask.data_ptr(),
+        flow.data_ptr() if return_flow else None, b, h, w, wh, ww,
+        dx.stride(0) if return_flow else 0, dx.stride(1) if return_flow else 0,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ), "scatter_window")
+    _build.LAUNCHES["scatter_window"] += 1
+    return mask, flow
+
+
+def scatter_seg_windows(mask_win, dx, dy, box, active, oys, oxs, h: int, w: int,
+                        return_flow: bool):
+    """K13, the seg step's scatter: the head's ``[B, wh, ww]`` uint8 mask
+    windows → the ``[B, h, w]`` mask frame, and with ``return_flow`` the flow
+    planes ``dx``, ``dy`` ``[B, wh, ww]`` → the ``[B, h, w, 2]`` frame of
+    (−dx, −dy), zero outside each ``box`` ``[B, 4]`` and for samples not
+    ``active``; each window is placed at its origin (``oys``, ``oxs``,
+    clamped as dynamic_slice does).  Returns ``(mask, flow or None)``.
+
+    Bit for bit :func:`scatter_seg_windows_plain`, which a CPU tensor takes;
+    a CUDA tensor launches K13 (``csrc/scatter_window.cu``) once.  Raises
+    ``ValueError`` for inputs K13 does not take (see
+    :func:`_check_scatter_args`)."""
+    _check_scatter_args(mask_win, dx, dy, box, active, oys, oxs, h, w, return_flow)
+    if mask_win.is_cuda:
+        return _scatter_seg_windows_cuda(mask_win, dx, dy, box, active, oys, oxs, h, w,
+                                         return_flow)
+    return scatter_seg_windows_plain(mask_win, dx, dy, box, active, oys, oxs, h, w,
+                                     return_flow)
 
 
 def region_percentage(box: torch.Tensor, image_h: int, image_w: int):

@@ -10,7 +10,8 @@ scattered back into the frame.
 
 - :func:`seg_batch_fast`, the throughput path: the crop is K1, the flow the
   fast Farnebäck (the fused route, K2–K4, or for presets beyond its halos
-  the level route, K5 and K6), the head (K10) thresholds |flow|².
+  the level route, K5 and K6), the head (K10) thresholds |flow|², and the
+  scatter of the mask and the flow into their frames is K13.
 - The exact path, which launches no kernel: :func:`seg_batch` on a batch,
   :func:`seg_step` on one pair, :func:`seg_step_full` on the whole frame,
   and the per-stage programs of the reference's dual-path replay,
@@ -104,20 +105,12 @@ def seg_batch_fast(
             inbox = roi_ops.window_box_mask(box, oys, oxs, wh, ww) & active[:, None, None]
             mask_win = _seg_head_mag2(dx, dy, inbox, cfg)
         with span("nsof.scatter"):
-            b = mem.shape[0]
-            mask = roi_ops.scatter_window(
-                torch.zeros((b, h, w), dtype=torch.uint8, device=dev), mask_win, box,
-                oys, oxs,
-            )
+            # K13: the mask and, with return_flow, the negated flow, zero outside the box
+            mask, flow = roi_ops.scatter_seg_windows(mask_win, dx, dy, box, active, oys, oxs,
+                                                     h, w, return_flow)
             out = {"mask": mask, "box": box, "any_active": active, "region_pct": region_pct}
             if return_flow:
-                # negated (optical_flow_seg.py:461), zero outside the box
-                flow_win = torch.stack([-dx, -dy], dim=-1)
-                flow_win = torch.where(inbox[..., None], flow_win, torch.zeros_like(flow_win))
-                out["flow"] = roi_ops.scatter_window(
-                    torch.zeros((b, h, w, 2), dtype=torch.float32, device=dev),
-                    flow_win, box, oys, oxs,
-                )
+                out["flow"] = flow
     return out
 
 

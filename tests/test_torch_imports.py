@@ -409,6 +409,12 @@ def test_wrappers_raise_without_kernel_library(cuda_device, monkeypatch, tmp_pat
         lambda: tff.poly_expansion_fast(img, 10, 1.05),
         lambda: tff.poly_expansion_pair(img, img, 10, 1.05, 4),
         lambda: tff.pyramid_blur(img, img, np.asarray([0.25, 0.5, 0.25], np.float32)),
+        lambda: troi.scatter_seg_windows(
+            torch.zeros((b, hk, wk), dtype=torch.uint8, device=dev), img, img,
+            torch.zeros((b, 4), dtype=torch.int32, device=dev),
+            torch.ones(b, dtype=torch.bool, device=dev),
+            torch.zeros(b, dtype=torch.int32, device=dev),
+            torch.zeros(b, dtype=torch.int32, device=dev), hk, wk, True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError):

@@ -4,8 +4,8 @@ The image-scale labelling (``label_components_sweep``) on CUDA equals the
 CPU version, and ``tracking_batch_fast`` / ``prediction_batch_fast`` in
 ``kernel_mode='fused'`` (K1–K4) equal the plain route (every kernel
 wrapper on its plain version, ``chip_smoke.plain_route``) on a 120×160
-grasp cut with a 64×96 window, B = 4.  ``stream_masks`` in 'auto' (K8 and
-K1–K4) and ``stream_masks_chunked`` equal the plain route on 9 frames of
+grasp cut with a 64×96 window, B = 4.  ``stream_masks`` in 'auto' (K8,
+K1–K4, K10 and K13) and ``stream_masks_chunked`` equal the plain route on 9 frames of
 that cut with a textured block moving (2, 3) px a frame, n_substeps 1000.
 ``deep_roi_flow_batch`` on RAFT-small and RAFT-basic (K1 on RGB windows)
 equals the plain route and, with cuDNN's TF32 off, the CPU within 1e-3 px.
@@ -20,7 +20,7 @@ GT_OWL_F32_REL, no kernel of the port launched.  ``OwlVitBoxProposer`` and
 Hugging Face directories (``tests/tiny_hf.py``), run on the card (skipped
 where ``transformers`` is missing).  ``make_sharded_seg_batch`` on
 ``make_mesh(1)`` at world size 1 over NCCL (B = 4, ``'fused'``) launches K1–K4, K10,
-K12 and equals ``seg_batch_fast`` bit for bit.
+K12, K13 and equals ``seg_batch_fast`` bit for bit.
 
 Needs the card: ``python -m pytest --noconftest -m cuda
 tests/test_torch_paths_cuda.py`` (the card's machine has no jax, which the
@@ -128,7 +128,7 @@ def test_stream_kernels_equal_plain_route(cuda_device):
     got = tstream.stream_masks(frames, cfg, sim)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["device_scan"] == 1 and _build.LAUNCHES["crop_windows"] == 2
-    assert _build.LAUNCHES["seg_head"] == 1
+    assert _build.LAUNCHES["seg_head"] == 1 and _build.LAUNCHES["scatter_window"] == 1
     assert got["any_active"].all() and got["masks"].any()
     chunked = tstream.stream_masks_chunked(frames, cfg, sim, chunk_pairs=3)
     with plain_route():
@@ -258,7 +258,8 @@ def test_sharded_seg_over_nccl(cuda_device):
         torch.cuda.synchronize()
         launched = {k for k, v in _build.LAUNCHES.items() if v}
         assert launched == {"crop_windows", "pyramid_blur", "poly_expansion",
-                            "update_matrices_sep", "fused_box_update", "seg_head"}
+                            "update_matrices_sep", "fused_box_update", "seg_head",
+                            "scatter_window"}
         want = seg_batch_fast(mem, prev, nxt, cfg, kernel_mode="fused")
         for key in ("mask", "box", "any_active"):
             assert torch.equal(got[key], want[key]), key
