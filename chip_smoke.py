@@ -2520,7 +2520,11 @@ def drive_deep_flowformer(dev) -> None:
     (K1 twice) and one full-frame step, timed; the flows finite; on a cut
     FF_CUT window the card's flow within DEEP_FLOW_TOL of the CPU port's
     with float32 convolutions and within DEEP_TF32_TOL at PyTorch's
-    defaults; FLOPs a pair."""
+    defaults; FLOPs a pair.  The model keeps the default ``gsa_pad='same'``:
+    the 480×640 frames' Twins grids (120×160 at sr 8, 60×80 at sr 4) are
+    multiples of sr, where it equals the published ``'valid'``, so these
+    frames hide the difference (the benchmark's ``flowformer.roi`` runs
+    ``'valid'`` at 640×360, where it shows)."""
     cfg = deep_cfg()
     mem, prevs, nxts = deep_inputs(dev)
     backend, cpu_backend = deep_backend("flowformer", dev)

@@ -5,6 +5,8 @@ Typed-dataclass replacement for the reference's yacs CfgNode trees
 (codebase/FlowFormer-Official/configs/*.py).  :class:`FlowFormerConfig`
 defaults mirror ``configs/things_eval.py:18-53`` — the checkpoint
 configuration the neuromorphic FF pipelines load (ff_seg.py:648-653).
+One field is the port's own: ``gsa_pad``, how the Twins backbones' global
+sub-sampled attention (GSA) cuts its key grid (see below).
 :data:`FF_EXPERIMENTS` replicates every per-stage experiment tree the
 reference ships (configs/{default,things,sintel,kitti,things_eval,
 small_things_eval,submission,things_flowformer_sharp}.py) as typed
@@ -43,6 +45,12 @@ class FlowFormerConfig:
     # backbone: 'twins' (SVT-large first two stages) or 'basic' (RAFT CNN)
     cnet: str = "twins"
     fnet: str = "twins"
+    # the Twins GSA's sub-sampling convolution (kernel = stride = sr): 'same'
+    # pads as Flax's 'SAME' and keeps ceil(side / sr) keys a side, the JAX
+    # package's behaviour; 'valid' is the published one, timm's unpadded
+    # Conv2d, floor(side / sr) keys, the trailing rows and columns unused.
+    # They agree where every stage's grid is a multiple of its sr (8, then 4).
+    gsa_pad: str = "same"
     compute_dtype: Any = torch.float32
     # recompute each decoder step in the backward pass (as RaftConfig.remat:
     # at depth 32 the stored per-step activations dominate training memory)

@@ -235,6 +235,11 @@ def load_flowformer_state(model: FlowFormer, state: Mapping[str, Any]) -> FlowFo
 def pretrained_flowformer(path: str, cfg: FlowFormerConfig | None = None) -> FlowFormer:
     """The port's FlowFormer with a reference checkpoint's weights
     (things.pth, sintel.pth, ...), in eval mode on the CPU: the torch side
-    of ff_seg.py:640-658."""
+    of ff_seg.py:640-658.  The default ``cfg`` keeps the JAX package's
+    ``gsa_pad='same'``; the published GSA is ``'valid'``, and the two differ
+    where a Twins grid is not a multiple of its sr (side / 4 at sr 8, side
+    / 8 at sr 4: a frame side that is not a multiple of 32), so a published
+    checkpoint run at such frames needs
+    ``FlowFormerConfig(gsa_pad='valid')``."""
     return load_flowformer_state(FlowFormer(cfg or FlowFormerConfig()),
                                  load_torch_state_dict(path)).eval()

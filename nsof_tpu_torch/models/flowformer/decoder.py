@@ -24,6 +24,7 @@ from nsof_tpu_torch.models.flowformer.encoder import (_ffn, linear_position_embe
                                                       multi_head_attention)
 from nsof_tpu_torch.models.raft import (BasicMotionEncoder, FlowHead, SepConvGRU, _conv,
                                         coords_grid, corr_lookup, upsample_flow_convex)
+from nsof_tpu_torch.utils.timing import span
 
 
 class GMAAttention(nn.Module):
@@ -125,38 +126,62 @@ class MemoryDecoder(nn.Module):
             self.att = GMAAttention()
         self.update_block = GMAUpdateBlock(dim if c.only_global else dim + 81)
 
-    def forward(self, cost_memory, context, cost_maps, flow_init=None, test_mode: bool = False):
-        """``cost_memory`` ``[B·H1·W1, K, D]``; ``context`` ``[B, H1, W1,
-        256]``; ``cost_maps`` ``[B·H1·W1, 1, H2, W2]``.  Returns the list of
-        per-step upsampled flows ``[B, H, W, 2]``, or in ``test_mode`` the
-        last."""
-        c = self.cfg
-        dim = c.query_latent_dim
+    def prepare(self, context, flow_init=None) -> tuple:
+        """What the steps take from ``context`` ``[B, H1, W1, 256]``: the
+        hidden state and the GRU's input (its projection's tanh and relu
+        halves), GMA's attention map over every 1/8 position, and the
+        coordinates (coords0, coords1)."""
         b, h1, w1, _ = context.shape
         ctx = self.proj(context.permute(0, 3, 1, 2))
         net = torch.tanh(ctx[:, :128])
         inp = F.relu(ctx[:, 128:])
-        attention = self.att(inp) if c.use_gma else None
+        attention = self.att(inp) if self.cfg.use_gma else None
         coords0 = coords_grid(b, h1, w1, context.device)
         coords1 = coords0.clone()
         if flow_init is not None:
             coords1 = coords1 + flow_init
+        return net, inp, attention, coords0, coords1
+
+    def memory_kv(self, cost_memory) -> tuple:
+        """The cross attention's key and value of the cost memory ``[B·H1·W1,
+        K, D]``, projected once for every step."""
         cross = self.decoder_layer.cross_attend
-        key, value = cross.k(cost_memory), cross.v(cost_memory)
+        return cross.k(cost_memory), cross.v(cost_memory)
+
+    def forward(self, prep: tuple, kv: tuple, cost_maps, test_mode: bool = False):
+        """The ``decoder_depth`` steps from :meth:`prepare`'s and
+        :meth:`memory_kv`'s outputs and the cost maps ``[B·H1·W1, 1, H2,
+        W2]``.  Returns the list of per-step upsampled flows ``[B, H, W, 2]``,
+        or in ``test_mode`` the last.  Spans a step:
+        ``nsof.flowformer.lookup`` (the 9×9 window), ``.query`` (the flow
+        token and its cross attention), ``.update`` (GMA's aggregation, the
+        GRU, the heads, the coordinates); ``.upsample``."""
+        c = self.cfg
+        dim = c.query_latent_dim
+        net, inp, attention, coords0, coords1 = prep
+        key, value = kv
+        b, _, h1, w1 = net.shape
+        cross = self.decoder_layer.cross_attend
         cm = [cost_maps[:, 0]]
 
         def step(net, coords1):
-            cost_forward = corr_lookup(cm, coords1, 4)  # [B, H1, W1, 81]
-            query = self.flow_token_encoder(cost_forward.permute(0, 3, 1, 2))
-            query = query.permute(0, 2, 3, 1).reshape(b * h1 * w1, 1, dim)
-            cost_global = cross(query, key, value, coords1).reshape(b, h1, w1, dim)
-            corr = cost_global if c.only_global else torch.cat(
-                [cost_global, cost_forward.to(cost_global.dtype)], dim=-1)
-            flow = (coords1 - coords0).permute(0, 3, 1, 2)
-            net, up_mask, delta = self.update_block(net, inp, corr.permute(0, 3, 1, 2), flow,
-                                                    attention)
-            coords1 = coords1 + delta.float().permute(0, 2, 3, 1)
-            flow_up = None if test_mode else self._upsample(coords1 - coords0, up_mask)
+            with span("nsof.flowformer.lookup"):
+                cost_forward = corr_lookup(cm, coords1, 4)  # [B, H1, W1, 81]
+            with span("nsof.flowformer.query"):
+                query = self.flow_token_encoder(cost_forward.permute(0, 3, 1, 2))
+                query = query.permute(0, 2, 3, 1).reshape(b * h1 * w1, 1, dim)
+                cost_global = cross(query, key, value, coords1).reshape(b, h1, w1, dim)
+            with span("nsof.flowformer.update"):
+                corr = cost_global if c.only_global else torch.cat(
+                    [cost_global, cost_forward.to(cost_global.dtype)], dim=-1)
+                flow = (coords1 - coords0).permute(0, 3, 1, 2)
+                net, up_mask, delta = self.update_block(net, inp, corr.permute(0, 3, 1, 2),
+                                                        flow, attention)
+                coords1 = coords1 + delta.float().permute(0, 2, 3, 1)
+            flow_up = None
+            if not test_mode:
+                with span("nsof.flowformer.upsample"):
+                    flow_up = self._upsample(coords1 - coords0, up_mask)
             return net, up_mask, coords1, flow_up
 
         remat = c.remat and torch.is_grad_enabled()
@@ -171,7 +196,8 @@ class MemoryDecoder(nn.Module):
             if not test_mode:
                 flows.append(flow_up)
         if test_mode:
-            return self._upsample(coords1 - coords0, up_mask)
+            with span("nsof.flowformer.upsample"):
+                return self._upsample(coords1 - coords0, up_mask)
         return flows
 
     @staticmethod

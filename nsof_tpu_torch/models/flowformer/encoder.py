@@ -229,29 +229,33 @@ class CostPerceiverEncoder(nn.Module):
 
 
 class MemoryEncoder(nn.Module):
-    """Features of both frames, their cost volume (not scaled by 1/√d,
-    encoder.py:341-352) and its latent tokens."""
+    """Features of both frames (:meth:`features`), then their cost volume
+    (not scaled by 1/√d, encoder.py:341-352) and its latent tokens."""
 
     def __init__(self, cfg: FlowFormerConfig):
         super().__init__()
         from nsof_tpu_torch.models.raft import BasicEncoder
 
         self.cfg = cfg
-        self.feat_encoder = (TwinsSVTLarge2Stage() if cfg.fnet == "twins"
+        self.feat_encoder = (TwinsSVTLarge2Stage(cfg.gsa_pad) if cfg.fnet == "twins"
                              else BasicEncoder(256, "instance"))
         self.channel_convertor = nn.Conv2d(256, cfg.encoder_latent_dim, 1, bias=False)
         self.cost_perceiver_encoder = CostPerceiverEncoder(cfg)
 
-    def forward(self, imgs, context):
-        """``imgs`` ``[2B, H, W, 3]`` (both frames), ``context`` ``[B, H1,
-        W1, 256]`` → (cost memory ``[B·H1·W1, K, D]``, cost maps ``[B·H1·W1,
-        heads, H1, W1]``)."""
-        c = self.cfg
-        if c.fnet == "twins":
+    def features(self, imgs):
+        """``imgs`` ``[2B, H, W, 3]`` (both frames) → their converted
+        features ``[2B, H1, W1, C]``."""
+        if self.cfg.fnet == "twins":
             feats = self.feat_encoder(imgs)
         else:
             feats = self.feat_encoder(imgs.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        feats = conv_nhwc(self.channel_convertor, feats)
+        return conv_nhwc(self.channel_convertor, feats)
+
+    def forward(self, feats, context):
+        """:meth:`features`' output and ``context`` ``[B, H1, W1, 256]`` →
+        (cost memory ``[B·H1·W1, K, D]``, cost maps ``[B·H1·W1, heads, H1,
+        W1]``)."""
+        c = self.cfg
         b = context.shape[0]
         _, h1, w1, ch = feats.shape
         heads = c.cost_heads_num

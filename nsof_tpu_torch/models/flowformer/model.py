@@ -4,9 +4,14 @@
 FlowFormer (transformer.py:19-48): a Twins-SVT context encoder, the memory
 encoder (features of both frames → cost volume → latent tokens, with the
 feature encoder inside it, as in the reference's module tree) and the
-recurrent memory decoder.  Tiled inference at any resolution slides
-TRAIN_SIZE windows with a minimum overlap and blends them with gaussian
-weights (visualize_flow.py:27-100).
+recurrent memory decoder.  The forward's spans (``utils/timing.py::span``):
+``nsof.flowformer.encode`` (the input scaling, both Twins encoders, the
+channel convertor, the decoder's context projection and GMA's attention
+map), ``nsof.flowformer.memory`` (the cost volume, its latent tokens and
+the decoder's k/v projection of them), then the decoder's per step
+(``.lookup``, ``.query``, ``.update``) and ``.upsample``.  Tiled inference
+at any resolution slides TRAIN_SIZE windows with a minimum overlap and
+blends them with gaussian weights (visualize_flow.py:27-100).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from nsof_tpu_torch.models.flowformer.config import (TILE_MIN_OVERLAP, TRAIN_SIZ
 from nsof_tpu_torch.models.flowformer.decoder import MemoryDecoder
 from nsof_tpu_torch.models.flowformer.encoder import MemoryEncoder
 from nsof_tpu_torch.models.flowformer.twins import TwinsSVTLarge2Stage
+from nsof_tpu_torch.utils.timing import span
 
 
 class FlowFormer(nn.Module):
@@ -30,7 +36,7 @@ class FlowFormer(nn.Module):
         from nsof_tpu_torch.models.raft import BasicEncoder
 
         self.cfg = cfg
-        self.context_encoder = (TwinsSVTLarge2Stage() if cfg.cnet == "twins"
+        self.context_encoder = (TwinsSVTLarge2Stage(cfg.gsa_pad) if cfg.cnet == "twins"
                                 else BasicEncoder(256, "instance"))
         self.memory_encoder = MemoryEncoder(cfg)
         self.memory_decoder = MemoryDecoder(cfg)
@@ -40,18 +46,27 @@ class FlowFormer(nn.Module):
         the list of per-step upsampled flows ``[B, H, W, 2]``, or in
         ``test_mode`` the last."""
         c = self.cfg
-        img1 = 2.0 * (image1.float() / 255.0) - 1.0
-        img2 = 2.0 * (image2.float() / 255.0) - 1.0
-        ctx = (contextlib.nullcontext() if c.compute_dtype == torch.float32
-               else torch.autocast(img1.device.type, dtype=c.compute_dtype))
-        with ctx:
-            if c.cnet == "twins":
-                context = self.context_encoder(img1)
-            else:
-                context = self.context_encoder(img1.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-            cost_memory, cost_maps = self.memory_encoder(torch.cat([img1, img2], dim=0), context)
-            return self.memory_decoder(cost_memory, context, cost_maps, flow_init,
-                                       test_mode=test_mode)
+        dec = self.memory_decoder
+
+        def mixed():
+            return (contextlib.nullcontext() if c.compute_dtype == torch.float32
+                    else torch.autocast(image1.device.type, dtype=c.compute_dtype))
+
+        with span("nsof.flowformer.encode"):
+            img1 = 2.0 * (image1.float() / 255.0) - 1.0
+            img2 = 2.0 * (image2.float() / 255.0) - 1.0
+            with mixed():
+                if c.cnet == "twins":
+                    context = self.context_encoder(img1)
+                else:
+                    context = self.context_encoder(img1.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                feats = self.memory_encoder.features(torch.cat([img1, img2], dim=0))
+                prep = dec.prepare(context, flow_init)
+        with span("nsof.flowformer.memory"), mixed():
+            cost_memory, cost_maps = self.memory_encoder(feats, context)
+            kv = dec.memory_kv(cost_memory)
+        with mixed():
+            return dec(prep, kv, cost_maps, test_mode=test_mode)
 
 
 # ── tiled inference ───────────────────────────────────────────────────────

@@ -14,6 +14,15 @@ The trunk sits under ``svt`` with timm's names (``svt.patch_embeds.0.proj``,
 ``attn.kv``), so reference checkpoints load as they are.  Activations are
 channels-last ``[B, H, W, C]``, as in the JAX model; the convolutions pad as
 Flax's ``'SAME'`` does (:class:`SameConv2d`).
+
+GSA's sub-sampling convolution (``attn.sr``, kernel = stride = sr) has two
+modes, ``gsa_pad``: ``'same'`` (the default, the JAX package's) keeps
+⌈side / sr⌉ keys a side, the grid padded as ``'SAME'`` pads (low and high);
+``'valid'`` is the published one, timm's ``GlobalSubSampleAttn.sr =
+nn.Conv2d(dim, dim, kernel_size=sr_ratio, stride=sr_ratio)`` with no
+padding: ⌊side / sr⌋ keys, the trailing rows and columns unused.  The two
+agree where each stage's grid is a multiple of its sr; at 640×360 (a
+160×90 grid at sr 8, then 80×45 at sr 4) they do not.
 """
 
 from __future__ import annotations
@@ -87,20 +96,28 @@ class LocallyGroupedAttn(nn.Module):
 
 
 class GlobalSubSampleAttn(nn.Module):
-    """GSA: queries attend to an sr_ratio-subsampled key/value summary."""
+    """GSA: queries attend to an sr_ratio-subsampled key/value summary; the
+    summary's convolution pads as ``pad`` says (``'same'`` or ``'valid'``,
+    see the module's docstring)."""
 
-    def __init__(self, dim: int, num_heads: int, sr_ratio: int):
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int, pad: str = "same"):
         super().__init__()
-        self.num_heads, self.sr_ratio = num_heads, sr_ratio
+        if pad not in ("same", "valid"):
+            raise ValueError(f"gsa_pad must be 'same' or 'valid', not {pad!r}")
+        self.num_heads, self.sr_ratio, self.pad = num_heads, sr_ratio, pad
         self.q = nn.Linear(dim, dim)
         self.kv = nn.Linear(dim, 2 * dim)
         self.proj = nn.Linear(dim, dim)
         if sr_ratio > 1:
-            self.sr = SameConv2d(dim, dim, sr_ratio, sr_ratio)
+            conv = SameConv2d if pad == "same" else nn.Conv2d
+            self.sr = conv(dim, dim, sr_ratio, sr_ratio)
             self.norm = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, x):
         b, h, w, c = x.shape
+        if self.pad == "valid" and self.sr_ratio > min(h, w):
+            raise ValueError(f"gsa_pad='valid' keeps no key of a {h}x{w} grid at sr "
+                             f"{self.sr_ratio}")
         kv_in = self.norm(conv_nhwc(self.sr, x)) if self.sr_ratio > 1 else x
         k, v = self.kv(kv_in).split(c, dim=-1)
         heads = "b x y (h d) -> b h (x y) d"
@@ -113,10 +130,11 @@ class GlobalSubSampleAttn(nn.Module):
 class Block(nn.Module):
     """A Twins block: LSA when ``ws > 1``, else GSA, then the MLP."""
 
-    def __init__(self, dim: int, num_heads: int, ws: int, sr_ratio: int, mlp_ratio: int = 4):
+    def __init__(self, dim: int, num_heads: int, ws: int, sr_ratio: int, mlp_ratio: int = 4,
+                 gsa_pad: str = "same"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = (GlobalSubSampleAttn(dim, num_heads, sr_ratio) if ws == 1
+        self.attn = (GlobalSubSampleAttn(dim, num_heads, sr_ratio, gsa_pad) if ws == 1
                      else LocallyGroupedAttn(dim, num_heads, ws))
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, dim * mlp_ratio, dim)
@@ -151,13 +169,14 @@ class _Trunk(nn.Module):
     """timm's Twins trunk, first two stages: dims 128 → 256, heads 4 → 8,
     sr 8 → 4, depths 2 + 2, ws 7."""
 
-    def __init__(self):
+    def __init__(self, gsa_pad: str = "same"):
         super().__init__()
         stages = [(3, 128, 4, 4, 8), (128, 256, 2, 8, 4)]
         self.patch_embeds = nn.ModuleList(PatchEmbed(cin, d, p) for cin, d, p, _, _ in stages)
         self.pos_block = nn.ModuleList(PosConv(d) for _, d, _, _, _ in stages)
         self.blocks = nn.ModuleList(
-            nn.ModuleList(Block(d, heads, 7 if j % 2 == 0 else 1, sr) for j in range(2))
+            nn.ModuleList(Block(d, heads, 7 if j % 2 == 0 else 1, sr, gsa_pad=gsa_pad)
+                          for j in range(2))
             for _, d, _, heads, sr in stages)
 
     def forward(self, x):
@@ -171,11 +190,12 @@ class _Trunk(nn.Module):
 
 
 class TwinsSVTLarge2Stage(nn.Module):
-    """``[B, H, W, 3]`` → ``[B, H/8, W/8, 256]``."""
+    """``[B, H, W, 3]`` → ``[B, H/8, W/8, 256]``; ``gsa_pad`` as in the
+    module's docstring."""
 
-    def __init__(self):
+    def __init__(self, gsa_pad: str = "same"):
         super().__init__()
-        self.svt = _Trunk()
+        self.svt = _Trunk(gsa_pad)
 
     def forward(self, x):
         return self.svt(x)

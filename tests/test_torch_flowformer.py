@@ -181,8 +181,9 @@ TRAINING_ONLY = {"dropout", "gamma", "max_flow", "canonical_lr",
 
 
 def test_config_and_presets_match_jax():
+    # the port's one more field, `gsa_pad`, defaults to the JAX model's 'same'
     fields = {f.name for f in dataclasses.fields(jconfig.FlowFormerConfig)} - TRAINING_ONLY
-    assert fields == {f.name for f in dataclasses.fields(tconfig.FlowFormerConfig)}
+    assert fields | {"gsa_pad"} == {f.name for f in dataclasses.fields(tconfig.FlowFormerConfig)}
     assert sorted(tconfig.FF_EXPERIMENTS) == sorted(jconfig.FF_EXPERIMENTS)
     for name, j in jconfig.FF_EXPERIMENTS.items():
         t = tconfig.get_experiment(name)
@@ -191,6 +192,7 @@ def test_config_and_presets_match_jax():
                 assert all(getattr(t.model, g) == getattr(j.model, g)
                            for g in fields - {"compute_dtype"}), name
                 assert (j.model.dropout, j.model.remat, t.model.remat) == (0.0, False, False), name
+                assert t.model.gsa_pad == "same", name
                 assert all(getattr(j.model, g) == getattr(j, g)
                            for g in TRAINING_ONLY - {"dropout"}), name
             else:
