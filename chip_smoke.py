@@ -180,7 +180,8 @@ its plain loop at K8_PLAIN_SUBSTEPS, with its chain bound and the bound of
 the substeps its longest cell ran; K1 also at the deep batch's RGB shapes;
 K9 at the YOLO post step's first launch in ``run_detection``, with its
 chain bound, its walk's reckoning and ``torchvision.ops.nms`` where
-that imports).
+that imports; K4 also at grasp's own canvases, B = 128, both emits and M
+types, every bfloat16 launch on its strip design).
 
 Each phase prints one JSON line.  The line before the last is the card's
 name and power limit as ``nvidia-smi`` reports them, the one before that
@@ -215,6 +216,7 @@ import numpy as np
 import torch
 
 from nsof_tpu_torch import _build
+from nsof_tpu_torch import time_k4 as tk4
 from nsof_tpu_torch.config import DATASETS
 from nsof_tpu_torch.data.scenes import SceneData
 from nsof_tpu_torch.device import frame_sim as tfs
@@ -270,13 +272,19 @@ B_CHECK = 16
 RADIUS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# every K4 launch of the grasp path takes the strip design: the tile design
+# launches nothing ("fused_box_update_tile" stays 0)
 EXPECTED_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
-                     "update_matrices_sep": 4, "fused_box_update": 12, "pyramid_blur": 3}
+                     "update_matrices_sep": 4, "fused_box_update": 12,
+                     "fused_box_update_strip": 12, "pyramid_blur": 3}
 # seg_batch_fast adds K10 (the seg head) and K13 (its scatter) once a call; the
 # tracking and prediction heads run neither
 SEG_LAUNCHES = {**EXPECTED_LAUNCHES, "seg_head": 1, "scatter_window": 1}
+# float32 M's next system takes K4's tile design (one strip block fills an
+# SM's shared memory), its flow emit the strip design
 F32_LAUNCHES = {"crop_windows": 2, "poly_expansion": 8,
-                "update_matrices_sep_f32": 4, "fused_box_update_f32": 12, "pyramid_blur": 3,
+                "update_matrices_sep_f32": 4, "fused_box_update_f32": 12,
+                "fused_box_update_strip": 4, "fused_box_update_tile": 8, "pyramid_blur": 3,
                 "seg_head": 1, "scatter_window": 1}
 # K1 beyond the main path: name → (frames shape, dtype, window, oys, oxs);
 # origins ≡ 0, 1, 15 (mod 16), ragged widths, 1-, 2-, 4- and 12-byte
@@ -1017,7 +1025,7 @@ def device_trace(call, ms_batch: float, batch: int, keys, **meta) -> dict:
         return {"phase": "device_trace", **meta, "busy_ms": "not measured",
                 "reason": "the profiler recorded no device events"}
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    ours = {k: 0.0 for k in keys}
+    ours = {k: 0.0 for k in keys if k in SOURCES}  # not K4's design counters
     for e in kern:
         for k in ours:
             if SOURCES[k][2] in e.key:
@@ -3848,6 +3856,43 @@ def check_kernels(dev) -> dict:
     return errs
 
 
+def k4_cell_times(dev) -> list[dict]:
+    """K4 through its wrapper at grasp's own canvases (1088×1920, 544×960,
+    288×480), B = 128, both emits and both M types: ms, the bound by bytes,
+    the plan the wrapper picked and the design each launch took (the
+    parent's ms come from ``python -m nsof_tpu_torch.time_k4 --csrc
+    <parent> <this>`` in the same call).  bfloat16 M takes the strip design
+    at every canvas, float32 M's next system the tile design."""
+    entries = []
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for hp, wp in tk4.CANVASES:
+        ops = tk4.operands(hp, wp, tk4.BATCH, dev, f32=True)
+        for dtype, m in ops["m"].items():
+            key = "fused_box_update" if dtype == torch.bfloat16 else "fused_box_update_f32"
+            for kind in ("matrices", "flow"):
+                kargs = (m, ops["r0"], ops["r1"], ops["bsc"], tk4.WINSIZE, tk4.RADIUS, kind)
+                _build.reset_launches()
+                tff.fused_box_update(*kargs)
+                torch.cuda.synchronize()
+                plan = tff.k4_plan(tk4.WINSIZE, tk4.RADIUS, kind, dtype, hp, wp, tk4.BATCH,
+                                   n_sm)
+                strip = int(dtype == torch.bfloat16 or kind == "flow")
+                designs = {k: _build.LAUNCHES[k]
+                           for k in ("fused_box_update_strip", "fused_box_update_tile")}
+                if designs != {"fused_box_update_strip": strip, "fused_box_update_tile": 1 - strip}:
+                    raise AssertionError(f"K4 at {hp}×{wp} ({key}, {kind}) took {designs}")
+                e = {"name": key, "emit": kind, "canvas": [hp, wp], "batch": tk4.BATCH,
+                     "plan": plan._asdict(),
+                     "ms": time_ms(lambda: tff.fused_box_update(*kargs), iters=10, warm=2),
+                     "bound_ms": tk4.bound_ms(hp, wp, tk4.BATCH, m.element_size(), kind),
+                     "card": smi_line()}
+                emit({"phase": "k4_cell_time", **e})
+                entries.append(e)
+        del ops
+        torch.cuda.empty_cache()
+    return entries
+
+
 def kernel_entry(launches: dict, errs: dict, entries: list, key: str, kernel, plain,
                  library, nbytes: float, flops: float, batch: int, plain_iters: int = 5,
                  **extra) -> None:
@@ -4286,6 +4331,7 @@ def main() -> None:
     kernels = kernel_times(launches, errs, dev, prev)
     kernels.extend(k12_times(errs, dev))
     kernels.extend(k13_times(errs, dev))
+    kernels.extend(k4_cell_times(dev))
     kernels.append(k8_time(launches, errs, dev))
     kernels.append(deep_k1_time(deep_launches, dev))
     kernels.append(k9_time(detect_launches, errs, k9_args))

@@ -11,7 +11,8 @@ The module also keeps the launch counters: each kernel wrapper adds one to
 its entry in :data:`LAUNCHES` where it launches its kernel, and nowhere
 else, so a caller can show which kernels a run went through.  A source may
 hold several launchers (the float32 forms beside the bfloat16 ones), each
-with its own counter.
+with its own counter; K4 also counts which of its two designs each launch
+took.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ LAUNCH_KEYS = (
     "update_matrices_sep_f32",     # K3, f32 M (kernel_mode='fused_f32')
     "fused_box_update",            # K4, bf16 M
     "fused_box_update_f32",        # K4, f32 M (kernel_mode='fused_f32')
+    "fused_box_update_strip",      # K4 launches of either M type on the strip design
+    "fused_box_update_tile",       # K4 launches of either M type on the tile design
     "update_matrices_sep_level",   # K5, the pallas_sep route's update
     "box_solve",                   # K6
     "update_matrices",             # K7, the pallas route's update

@@ -65,6 +65,7 @@ launches its CUDA kernel for a CUDA tensor, raising if it cannot.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -425,12 +426,110 @@ def _fused_box_update_plain(m, r0, r1, bsc, winsize, radius, emit,
     return out.reshape(b, 5, hp, wp)
 
 
-def _fused_box_update_cuda(m, r0, r1, bsc, winsize, radius, emit, margin):
-    b, _, hp, wp = m.shape
-    _check(m, "m", m.dtype, (b, 5, hp, wp), m.device)
-    if winsize // 2 > 31:
+# K4's strip design (csrc/fused_box_update.cu): a block owns a 32-column
+# strip of one sample and walks down its 32-row blocks, the rows that
+# consecutive blocks share kept in rings of shared memory and the next
+# block's rows loaded while this one computes.  It has instances for the
+# presets' windows (5, 15) at radius 3 and 5 (and the flow emit at any
+# radius); the picker below takes it where two of its blocks fit an SM and
+# chooses the walk from what it sees.  Every other case takes the tile
+# design (one block a 32×32 tile, its phases in turn).
+K4_SMEM_BYTES = 232448          # a block's dynamic shared memory on sm_90
+K4_SM_SMEM_BYTES = 233472       # an SM's shared memory for its blocks
+K4_BLOCK_SMEM_RESERVED = 1024   # the runtime's share of it a block
+K4_STRIP_WINDOWS = (5, 15)
+K4_STRIP_RADII = (3, 5)
+K4_STRIP_THREADS = {"matrices": 320, "flow": 256}  # a strip block's threads
+# the longest walk: on an H100 at grasp's canvases (B = 128) longer walks
+# were slower, by 8 % for the flow emit at 34 row blocks against 4 (PERF.md §6)
+K4_WALK_MAX = {"matrices": 9, "flow": 4}
+
+
+class K4Plan(NamedTuple):
+    """How one K4 launch runs: the strip design with each block walking
+    ``walk`` 32-row blocks, M's ring of ``ring_m_rows`` rows and r1's of
+    ``ring_r1_rows`` in ``smem`` bytes of shared memory; or, with ``walk``
+    0, the tile design."""
+
+    walk: int
+    smem: int
+    ring_m_rows: int
+    ring_r1_rows: int
+
+
+K4_TILE_PLAN = K4Plan(0, 0, 0, 0)
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _k4_strip_layout(winsize: int, radius: int, emit_flow: bool, m_bytes: int) -> dict:
+    """The strip design's shared memory (``csrc/fused_box_update.cu``'s
+    ``Strip``, which this mirrors): M's ring of the slab's rows in M's type
+    and r1's ring of the warp's rows, both in 16-byte chunks; the column
+    sums (16-byte rows), then T in their room; the clamped flow."""
+    mm = winsize // 2
+    ext = 0 if emit_flow else radius + 1
+    rows = CANVAS + 2 * ext
+    slab_rows = rows + 2 * mm
+    vc = CANVAS + 2 * mm
+    a = 16 // m_bytes  # elements of a 16-byte copy
+    mw = -(-(vc + (-mm) % a) // a) * a
+    nr = CANVAS + 2 * radius + 1
+    w1 = (CANVAS + ((radius + 3) & ~3) + radius + 1 + 3) & ~3  # from canvas column X0 - ⌈r⌉₄
+    ring_r = 0 if emit_flow else _round16(nr * 5 * w1 * 4)
+    sums = rows * 5 * ((vc + 3) & ~3) * 4
+    tpass = 0 if emit_flow else nr * 5 * CANVAS * 4
+    flow = 0 if emit_flow else (rows + CANVAS) * CANVAS * 4
+    return {"bytes": _round16(slab_rows * 5 * mw * m_bytes) + ring_r
+            + _round16(max(sums, tpass)) + flow,
+            "ring_m_rows": slab_rows, "ring_r1_rows": 0 if emit_flow else nr, "align": a}
+
+
+def k4_plan(winsize: int, radius: int, emit: str, m_dtype, hp: int, wp: int, b: int,
+            n_sm: int) -> K4Plan:
+    """How K4 runs on ``b`` canvases of ``hp × wp`` on a card of ``n_sm``
+    SMs.  The strip design where it has an instance (``K4_STRIP_WINDOWS``,
+    at ``K4_STRIP_RADII`` for the next system), two of its blocks fit an SM
+    (float32 M's next system holds one: its phases would wait on each
+    other) and the canvas width is a multiple of M's 16-byte copy.  Its
+    walks are as long as ``K4_WALK_MAX`` allows and the walks of a strip
+    balanced, but shorter where the grid would give the card's SMs fewer
+    blocks than they hold, so a small canvas still fills the card.
+    Otherwise the tile design."""
+    if 2 * (winsize // 2) + 1 > 63:
         raise ValueError(f"winsize {winsize} exceeds the kernel's 63")
     flow = emit == "flow"
+    lay = _k4_strip_layout(winsize, radius, flow, 2 if m_dtype == torch.bfloat16 else 4)
+    per_sm = min(K4_SM_SMEM_BYTES // (lay["bytes"] + K4_BLOCK_SMEM_RESERVED),
+                 2048 // K4_STRIP_THREADS[emit])
+    if (2 * (winsize // 2) + 1 not in K4_STRIP_WINDOWS
+            or not flow and radius not in K4_STRIP_RADII or per_sm < 2 or wp % lay["align"]):
+        return K4_TILE_PLAN
+    strips = -(-wp // CANVAS)
+    blocks = hp // CANVAS
+    n_walks = -(-blocks // K4_WALK_MAX[emit])
+    while strips * b * n_walks < n_sm * per_sm and n_walks < blocks:
+        n_walks += 1
+    walk = -(-blocks // n_walks)
+    return K4Plan(walk, lay["bytes"], lay["ring_m_rows"], lay["ring_r1_rows"])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fused_box_update_cuda(m, r0, r1, bsc, winsize, radius, emit, margin, plan=None):
+    b, _, hp, wp = m.shape
+    _check(m, "m", m.dtype, (b, 5, hp, wp), m.device)
+    flow = emit == "flow"
+    if plan is None:
+        plan = k4_plan(winsize, radius, emit, m.dtype, hp, wp, b, _sm_count(m.device.index))
+        # M's and r1's rows take 16-byte copies
+        if m.data_ptr() % 16 or not flow and (r1.data_ptr() % 16 or margin[1] % 4):
+            plan = K4_TILE_PLAN
     if flow:
         out = torch.empty((b, 2, hp, wp), dtype=torch.float32, device=m.device)
         hk, wk = bsc.shape
@@ -442,13 +541,14 @@ def _fused_box_update_cuda(m, r0, r1, bsc, winsize, radius, emit, margin):
         out = torch.empty((b, 5, hp, wp), dtype=m.dtype, device=m.device)
         r0_ptr, r1_ptr, bsc_ptr = r0.data_ptr(), r1.data_ptr(), bsc.data_ptr()
     key = "fused_box_update" if m.dtype == torch.bfloat16 else "fused_box_update_f32"
-    fn = _build.launcher("fused_box_update", 5, 10, f"nsof_{key}")
+    fn = _build.launcher("fused_box_update", 5, 11, f"nsof_{key}")
     _build.check(fn(
         m.data_ptr(), r0_ptr, r1_ptr, bsc_ptr, out.data_ptr(),
-        b, hk, wk, hp, wp, margin[0], margin[1], winsize, radius, int(flow),
+        b, hk, wk, hp, wp, margin[0], margin[1], winsize, radius, int(flow), plan.walk,
         _stream(m),
     ), key)
     _build.LAUNCHES[key] += 1
+    _build.LAUNCHES["fused_box_update_strip" if plan.walk else "fused_box_update_tile"] += 1
     return out
 
 

@@ -11,8 +11,10 @@ canvases larger than the image, ragged strips and runs, B = 1.  K3: both M
 types at radius 3, 5 and 7 on a canvas with slack rows and columns; K5 at
 radius 3, 8 and its widest on a 97×131 level.  K4: both emits and both M
 types at the grasp (15, 3), tabletennis (4, 5), fused-route limit (17, 7)
-and widest (63, 7) (winsize, radius), on a canvas with slack rows and
-columns.  K7: radius 1, 3, 8 and 37 on a 97×131 level, B = 2 and 1, with
+and widest (63, 7) (winsize, radius), on ``K4_SHAPES``: a canvas with slack
+rows and columns, walks across 5 row blocks of a width no strip divides,
+grasp's coarsest level, tabletennis's 160×160, and the tile design forced;
+the wrapper's strip plan against the kernel's own.  K7: radius 1, 3, 8 and 37 on a 97×131 level, B = 2 and 1, with
 flows at integers, ±r and beyond, ±0, tiny values and one ulp either side
 of each integer.  K8 (the device scan): the 6×8, 12×16 and a ragged 7×13
 grid, the modulation's dead zone and powf drives, mixed lanes (cells that
@@ -31,12 +33,15 @@ tests/test_torch_kernels_cuda.py`` (the card's machine has no jax, which
 the repo's conftest imports).  Skipped without a CUDA device.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (K1_CASES, K2_CASES, K3_CASES, K4_CASES, K7_CASES, K8_CASES, K9_CASES,
                         bits_equal, k2_case, k3_case, k7_case, k8_case, k9_case)
+from nsof_tpu_torch import _build
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops import roi as troi
 
@@ -67,15 +72,31 @@ def test_crop_windows_kernel_matches_plain(cuda_device, name):
     assert torch.equal(got, ref)
 
 
+# K4's canvases: name → (B, hk, wk, hp, wp, SM count the plan is picked for
+# (None: the card's), design).  "walk_ragged": one SM's block slots make
+# walks as long as the picker allows, at least 4 of the 8 row blocks, and
+# 200 columns are no multiple of the 32-column strip; "grasp_level2": grasp's coarsest canvas; "tabletennis": 160×160,
+# 5 strips (fewer than the SMs); "tile": the tile design, forced.
+K4_SHAPES = {
+    "64x96": (3, 40, 50, 64, 96, None, "auto"),
+    "walk_ragged": (2, 250, 190, 256, 200, 1, "auto"),
+    "grasp_level2": (2, 270, 480, 288, 480, None, "auto"),
+    "tabletennis": (2, 160, 160, 160, 160, None, "auto"),
+    "tile": (3, 40, 50, 64, 96, None, "tile"),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(K4_SHAPES))
 @pytest.mark.parametrize("m_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("emit", ["matrices", "flow"])
 @pytest.mark.parametrize("winsize,radius", K4_CASES)
-def test_fused_box_update_kernel_matches_plain(cuda_device, winsize, radius, emit, m_dtype):
-    """Max |Δ| 0: the kernel is built with --fmad=false and sums in the
-    plain version's order."""
+def test_fused_box_update_kernel_matches_plain(cuda_device, winsize, radius, emit, m_dtype,
+                                               shape):
+    """Max |Δ| 0 on both designs: the kernel is built with --fmad=false and
+    sums in the plain version's order."""
     rng = np.random.default_rng(winsize * 10 + radius)
-    b, hk, wk, hp, wp = 3, 40, 50, 64, 96
+    b, hk, wk, hp, wp, n_sm, design = K4_SHAPES[shape]
     mr, mc = tff.R1_MARGIN
 
     def t(shape, scale):
@@ -85,11 +106,37 @@ def test_fused_box_update_kernel_matches_plain(cuda_device, winsize, radius, emi
     r0 = t((b, 5, hp, wp), 50.0)
     r1 = t((b, 5, hp + 2 * mr, wp + 2 * mc), 50.0)
     bsc = tff.border_scale(hk, wk, str(cuda_device))
-    got = tff.fused_box_update(m, r0, r1, bsc, winsize, radius, emit)
+    if design == "tile":
+        plan = tff.K4_TILE_PLAN
+    else:
+        plan = tff.k4_plan(winsize, radius, emit, m_dtype, hp, wp, b,
+                           n_sm or tff._sm_count(cuda_device.index or 0))
+    if shape == "walk_ragged" and plan.walk:
+        assert plan.walk >= 4
+    _build.reset_launches()
+    got = tff._fused_box_update_cuda(m, r0, r1, bsc, winsize, radius, emit, tff.R1_MARGIN,
+                                     plan=plan)
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_box_update_strip" if plan.walk else
+                           "fused_box_update_tile"] == 1
     ref = tff._fused_box_update_plain(m, r0, r1, bsc, winsize, radius, emit)
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert (got.float() - ref.float()).abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_fused_box_update_strip_bytes_match_the_kernel(cuda_device):
+    """The wrapper's mirror of the strip design's shared memory is the
+    kernel's own plan, byte for byte."""
+    fn = _build.load("fused_box_update").nsof_fused_box_update_strip_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    for winsize in (4, 5, 14, 15):
+        for radius in tff.K4_STRIP_RADII:
+            for flow in (0, 1):
+                for m_bytes in (2, 4):
+                    want = tff._k4_strip_layout(winsize, radius, bool(flow), m_bytes)
+                    assert fn(winsize, radius, flow, m_bytes) == want["bytes"]
+    assert fn(17, 3, 0, 2) == fn(15, 7, 0, 2) == -1
 
 
 def _assert_exact(got, ref):

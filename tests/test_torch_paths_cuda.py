@@ -258,8 +258,8 @@ def test_sharded_seg_over_nccl(cuda_device):
         torch.cuda.synchronize()
         launched = {k for k, v in _build.LAUNCHES.items() if v}
         assert launched == {"crop_windows", "pyramid_blur", "poly_expansion",
-                            "update_matrices_sep", "fused_box_update", "seg_head",
-                            "scatter_window"}
+                            "update_matrices_sep", "fused_box_update",
+                            "fused_box_update_strip", "seg_head", "scatter_window"}
         want = seg_batch_fast(mem, prev, nxt, cfg, kernel_mode="fused")
         for key in ("mask", "box", "any_active"):
             assert torch.equal(got[key], want[key]), key
