@@ -3288,7 +3288,7 @@ def drive_gt_sam(dev, frame: np.ndarray):
     """SAM at full width on the card.
 
     - vit_b (synthetic weights, GT_SAM_HEAD) behind ``SamPredictor`` on the
-      480×640 frame: ``set_image`` (768×1024 resize on the host, 1024²
+      480×640 frame: ``set_image`` (768×1024 resize on the device, 1024²
       encoder) and ``predict`` with 1 and 4 boxes (``postprocess`` 256² →
       1024² → crop 768×1024 → 480×640); each one's numbers
       (:func:`gt_measure`), its outputs' shapes, finite values, the mask's

@@ -9,7 +9,8 @@ source, all at once, and waits for them.
 
 The module also keeps the launch counters: each kernel wrapper adds one to
 its entry in :data:`LAUNCHES` where it launches its kernel, and nowhere
-else, so a caller can show which kernels a run went through.  A source may
+else, so a caller can show which kernels a run went through; :data:`COUNTS`
+holds the work of steps that launch no kernel of their own.  A source may
 hold several launchers (the float32 forms beside the bfloat16 ones), each
 with its own counter; K4 also counts which of its two designs each launch
 took.
@@ -65,6 +66,10 @@ LAUNCH_KEYS = (
 )
 
 LAUNCHES = {name: 0 for name in LAUNCH_KEYS}
+# the work of steps that launch no kernel of their own, counted where it
+# is done: the frames the SAM ground-truth step encodes and the box prompts
+# it decodes (data/gt_tooling.py::sam_gt_batch)
+COUNTS = {"sam_frames": 0, "sam_boxes": 0}
 # per source built in this process: ptxas's resource lines of each kernel
 BUILD_INFO: dict[str, list[str]] = {}
 
@@ -93,8 +98,10 @@ def resolve_device(device) -> "torch.device":
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero :data:`LAUNCHES` and :data:`COUNTS`."""
+    for counter in (LAUNCHES, COUNTS):
+        for name in counter:
+            counter[name] = 0
 
 
 def nvcc_path() -> str:

@@ -9,10 +9,12 @@ pluggable :class:`PromptSegmenter`:
 - :class:`TorchOwlVitBoxProposer` — text → boxes with the port's OWL-ViT
   (:mod:`nsof_tpu_torch.models.owlvit`), GroundingDINO's role
   (lang_sam.py:91-103); ``FlaxOwlVitBoxProposer``'s counterpart;
-- :class:`TorchSamSegmenter` — boxes → masks with the port's SAM
-  (:mod:`nsof_tpu_torch.models.sam`), ``multimask_output=False`` as the
-  reference's ``predict_sam`` (lang_sam.py:105-115); ``FlaxSamSegmenter``'s
-  counterpart;
+- :func:`sam_gt_batch` — the ground-truth step on the device: B frames and
+  their box prompts → each frame's OR of its instance masks, with the
+  port's SAM (:mod:`nsof_tpu_torch.models.sam`), ``multimask_output=False``
+  as the reference's ``predict_sam`` (lang_sam.py:105-115);
+- :class:`TorchSamSegmenter` — boxes from a proposer → masks through
+  :func:`sam_gt_batch`; ``FlaxSamSegmenter``'s counterpart;
 - :class:`OwlVitBoxProposer`, :class:`TransformersSamSegmenter` — the
   Hugging Face ``transformers`` models, imported inside the class;
 - :func:`lang_sam_segmenter` — the text → boxes → masks chain;
@@ -26,9 +28,10 @@ checkpoint is a path.  Without them the constructors raise ``OSError``
 ``ImportError`` without ``transformers``.  Every model runs on the
 constructor's ``device``: the CUDA device unless the caller passes another,
 ``RuntimeError`` without one.  :func:`generate_gt_masks` is the reference
-CLI's loop; frames are read as :mod:`nsof_tpu_torch.data.scenes` reads them
-(PNG through :mod:`nsof_tpu_torch.utils.png`, OpenCV imported inside the
-call only for another format) and masks are written as PNG.
+CLI's loop, ``batch`` frames a step; frames are read as
+:mod:`nsof_tpu_torch.data.scenes` reads them (PNG through
+:mod:`nsof_tpu_torch.utils.png`, OpenCV imported inside the call only for
+another format) and masks are written as PNG.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 from nsof_tpu_torch import _build
 from nsof_tpu_torch.data.imgproc import resize_cubic
 from nsof_tpu_torch.ops.colorspace import rgb_to_gray_u8
+from nsof_tpu_torch.utils.timing import span
 
 _EIGHT = np.ones((3, 3), bool)
 
@@ -303,19 +307,68 @@ class TransformersSamSegmenter:
         return [np.asarray(m[0]) > 0 for m in masks]
 
 
+def sam_gt_batch(model, frames: torch.Tensor, boxes: torch.Tensor, box_frame: torch.Tensor,
+                 instances: bool = False) -> dict:
+    """The ground-truth step on a batch, on the model's device with no host
+    synchronisation: uint8 RGB ``frames`` ``[B, H, W, 3]``, float32
+    ``boxes`` ``[N, 4]`` xyxy in frame pixels and int64 ``box_frame`` ``[N]``
+    (each box's frame, sorted) →
+
+    - ``mask`` bool ``[B, H, W]``: the OR of each frame's instance masks,
+      all False for a frame with no box;
+    - ``low_res`` ``[N, 1, 4S', 4S']`` logits and ``iou`` ``[N, 1]``, the
+      first mask token's (``multimask_output=False``);
+    - with ``instances``, ``instances`` bool ``[N, H, W]``, each box's mask.
+
+    One encoder call on the B frames (:func:`~nsof_tpu_torch.models.sam.
+    preprocess_frames`, :func:`~nsof_tpu_torch.models.sam.encode_images`),
+    one decoder call on the N boxes, each on its own frame's embedding
+    (:func:`~nsof_tpu_torch.models.sam.decode_prompts`), then the two
+    resizes, the threshold and the OR (an integer count per pixel).  Spans:
+    ``nsof.sam_gt_batch`` around the ``nsof.sam.*`` of the pieces; the
+    frames and boxes are counted in ``_build.COUNTS``."""
+    from nsof_tpu_torch.models import sam as tsam
+
+    b, h, w = frames.shape[:3]
+    n = boxes.shape[0]
+    cfg = model.config
+    input_size = tsam.preprocess_shape(h, w, cfg.img_size)
+    with span("nsof.sam_gt_batch"), torch.inference_mode():
+        emb = tsam.encode_images(model, tsam.preprocess_frames(model, frames))
+        if n:
+            corners = tsam.transform_coords(boxes.reshape(-1, 2, 2), (h, w), input_size)
+            low_res, iou = tsam.decode_prompts(model, emb, boxes=corners.reshape(-1, 4),
+                                               image_index=box_frame)
+            low_res, iou = low_res[:, :1], iou[:, :1]
+        else:
+            side = 4 * cfg.embedding_size
+            low_res, iou = emb.new_zeros((0, 1, side, side)), emb.new_zeros((0, 1))
+        with span("nsof.sam.postprocess"):
+            inst = tsam.postprocess_masks(low_res, input_size, (h, w), cfg.img_size)[:, 0]
+            inst = inst > tsam.MASK_THRESHOLD
+            count = torch.zeros((b, h, w), dtype=torch.int32, device=frames.device)
+            count.index_add_(0, box_frame, inst.to(torch.int32))
+            out = {"mask": count > 0, "low_res": low_res, "iou": iou}
+    _build.COUNTS["sam_frames"] += b
+    _build.COUNTS["sam_boxes"] += n
+    if instances:
+        out["instances"] = inst
+    return out
+
+
 class TorchSamSegmenter:
     """Boxes from a proposer → masks with the port's SAM
-    (``FlaxSamSegmenter``'s counterpart), ``multimask_output=False`` as the
-    reference's ``predict_sam`` (lang_sam.py:105-115).  Takes a
+    (``FlaxSamSegmenter``'s counterpart) through :func:`sam_gt_batch`,
+    ``multimask_output=False`` as the reference's ``predict_sam``
+    (lang_sam.py:105-115).  Takes a
     :class:`~nsof_tpu_torch.models.sam.Sam` holding its weights; build from
     an official ``sam_vit_*.pth`` with :meth:`for_checkpoint`.  The proposer
     defaults to the whole frame.  Runs on ``device`` (default the CUDA
     device; raises ``RuntimeError`` without one unless ``device='cpu'``)."""
 
     def __init__(self, model, box_proposer=None, device=None):
-        from nsof_tpu_torch.models.sam import SamPredictor
-
-        self.predictor = SamPredictor(model, device)
+        self.device = _build.resolve_device(device)
+        self.model = model.to(self.device).eval().requires_grad_(False)
         self.box_proposer = box_proposer or _whole_image
 
     @classmethod
@@ -325,14 +378,38 @@ class TorchSamSegmenter:
         device = _build.resolve_device(device)
         return cls(pretrained_sam(path), box_proposer, device)
 
+    def _step(self, images: list, boxes: list, instances: bool = False) -> dict:
+        """:func:`sam_gt_batch` on same-sized frames and their box lists."""
+        dev = self.device
+        frames = torch.from_numpy(np.stack([np.ascontiguousarray(i) for i in images])).to(dev)
+        flat = np.asarray([b for bs in boxes for b in bs], np.float32).reshape(-1, 4)
+        owner = np.repeat(np.arange(len(boxes)), [len(bs) for bs in boxes])
+        return sam_gt_batch(self.model, frames, torch.from_numpy(flat).to(dev),
+                            torch.from_numpy(owner).to(dev), instances)
+
     def __call__(self, image_rgb, text_prompt):
         boxes = self.box_proposer(image_rgb, text_prompt)
         if not boxes:
             return []
-        self.predictor.set_image(image_rgb)
-        masks, _, _ = self.predictor.predict(boxes=np.asarray(boxes, np.float32),
-                                             multimask_output=False)
-        return [m[0] for m in masks]
+        return list(self._step([image_rgb], [boxes], instances=True)["instances"].cpu().numpy())
+
+    def combined_masks(self, images: list, text_prompt: str) -> list[tuple[np.ndarray, int]]:
+        """Each frame's OR of its instance masks and their count: the boxes of
+        every frame, then one :func:`sam_gt_batch` on the frames that have a
+        box (runs of consecutive frames of one size)."""
+        boxes = [self.box_proposer(img, text_prompt) for img in images]
+        out = [(np.zeros(img.shape[:2], bool), len(bs)) for img, bs in zip(images, boxes)]
+        runs = []
+        for i in (i for i, bs in enumerate(boxes) if bs):
+            if runs and images[runs[-1][-1]].shape == images[i].shape:
+                runs[-1].append(i)
+            else:
+                runs.append([i])
+        for run in runs:
+            masks = self._step([images[i] for i in run], [boxes[i] for i in run])["mask"]
+            for i, m in zip(run, masks.cpu().numpy()):
+                out[i] = (m, len(boxes[i]))
+        return out
 
 
 def lang_sam_segmenter(sam_model: str = "facebook/sam-vit-base",
@@ -380,27 +457,37 @@ def _read_rgb(path: pathlib.Path) -> np.ndarray:
 
 
 def generate_gt_masks(image_dir, imgs_txt, out_dir, text_prompt: str,
-                      segmenter: PromptSegmenter) -> list[MaskGenResult]:
+                      segmenter: PromptSegmenter, batch: int = 1) -> list[MaskGenResult]:
     """The reference mask-generation loop (running_test.py:27-56): for each
     frame listed in ``imgs_txt``, OR all instance masks of the prompt and
     write a {0, 255} mask PNG (all black when nothing is found) under the
     frame's own name, where :func:`~nsof_tpu_torch.data.scenes.load_scene`
     looks for it (OpenCV's ``imread`` decodes it by content whatever the
-    suffix)."""
+    suffix).  Frames are read ``batch`` at a time; a segmenter with a
+    ``combined_masks`` method (:class:`TorchSamSegmenter`) takes them as one
+    step, any other one frame at a time.  The PNGs are written after the
+    step."""
     from nsof_tpu_torch.utils.png import encode_png
 
     image_dir = pathlib.Path(image_dir)
     out_dir = pathlib.Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     names = [s for s in pathlib.Path(imgs_txt).read_text().splitlines() if s.strip()]
+    combined = getattr(segmenter, "combined_masks", None) or (
+        lambda images, prompt: [_or_masks(rgb, segmenter(rgb, prompt)) for rgb in images])
     results = []
-    for name in names:
-        rgb = _read_rgb(image_dir / name)
-        masks = segmenter(rgb, text_prompt)
-        combined = np.zeros(rgb.shape[:2], np.uint8)
-        for m in masks:
-            combined |= (np.asarray(m) > 0).astype(np.uint8)
-        out_path = out_dir / name
-        out_path.write_bytes(encode_png(combined * 255))
-        results.append(MaskGenResult(name, len(masks), str(out_path)))
+    for start in range(0, len(names), batch):
+        group = names[start : start + batch]
+        masks = combined([_read_rgb(image_dir / name) for name in group], text_prompt)
+        for name, (mask, n) in zip(group, masks):
+            out_path = out_dir / name
+            out_path.write_bytes(encode_png(mask.astype(np.uint8) * 255))
+            results.append(MaskGenResult(name, n, str(out_path)))
     return results
+
+
+def _or_masks(rgb: np.ndarray, masks: list) -> tuple[np.ndarray, int]:
+    combined = np.zeros(rgb.shape[:2], bool)
+    for m in masks:
+        combined |= np.asarray(m) > 0
+    return combined, len(masks)

@@ -61,21 +61,21 @@ def _linear_taps(n_in: int, n_out: int, clamp: bool):
     return np.clip(i, 0, n_in - 1), np.clip(i + 1, 0, n_in - 1), f
 
 
-def _round_i16(x: np.ndarray) -> np.ndarray:
-    return np.rint(x).astype(np.int32)
+def linear_taps_u8(n_in: int, n_out: int, clamp: bool):
+    """:func:`_linear_taps` with the fraction as OpenCV's two 11-bit
+    fixed-point weights of a uint8 resize: ``(i0, i1, a0, a1)``, int32."""
+    i0, i1, f = _linear_taps(n_in, n_out, clamp)
+    a0 = np.rint((np.float32(1) - f) * _COEF_SCALE).astype(np.int32)
+    return i0, i1, a0, np.rint(f * _COEF_SCALE).astype(np.int32)
 
 
 def resize_linear(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
     """``cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)`` for
     uint8 or float32 ``[H, W]`` / ``[H, W, C]``."""
     h, w = img.shape[:2]
-    x0, x1, fx = _linear_taps(w, nw, clamp=True)
-    y0, y1, fy = _linear_taps(h, nh, clamp=False)
     if img.dtype == np.uint8:
-        ax0 = _round_i16((np.float32(1) - fx) * _COEF_SCALE)
-        ax1 = _round_i16(fx * _COEF_SCALE)
-        by0 = _round_i16((np.float32(1) - fy) * _COEF_SCALE)
-        by1 = _round_i16(fy * _COEF_SCALE)
+        x0, x1, ax0, ax1 = linear_taps_u8(w, nw, clamp=True)
+        y0, y1, by0, by1 = linear_taps_u8(h, nh, clamp=False)
         src = img.astype(np.int32)
         shape = (1, nw) + (1,) * (img.ndim - 2)
         rows = src[:, x0] * ax0.reshape(shape) + src[:, x1] * ax1.reshape(shape)
@@ -86,6 +86,8 @@ def resize_linear(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
         return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
     if img.dtype != np.float32:
         raise ValueError(f"resize_linear takes uint8 or float32, got {img.dtype}")
+    x0, x1, fx = _linear_taps(w, nw, clamp=True)
+    y0, y1, fy = _linear_taps(h, nh, clamp=False)
     shape = (1, nw) + (1,) * (img.ndim - 2)
     ax1 = fx.reshape(shape)
     ax0 = np.float32(1) - ax1

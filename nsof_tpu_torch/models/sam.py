@@ -31,6 +31,18 @@ the encoder, the neck, the mask downscaling and the upscaling, torch's
 default 1e-5 in the decoder transformer.  Everything runs on the model's
 device; the predictor's entry points run on the card unless the caller
 passes a CPU device.
+
+One path, on the device, for one frame or a batch: :func:`preprocess_frames`
+(uint8 frames ``[B, H, W, 3]``, the longest side resized by
+:func:`~nsof_tpu_torch.ops.resize.resize_linear_u8`, normalised, zero-padded
+to the square), :func:`encode_images`, :func:`decode_prompts` (each prompt
+reads the embedding of its own frame) and :func:`postprocess_masks`.
+:class:`SamPredictor` calls them at B = 1, the ground-truth step
+(:func:`nsof_tpu_torch.data.gt_tooling.sam_gt_batch`) on a batch.  They open
+the profiler spans ``nsof.sam.preprocess``, ``nsof.sam.encode`` (inside
+it ``nsof.sam.encode.window`` a windowed block and ``nsof.sam.encode.global``
+a global one) and ``nsof.sam.decode``; their callers open
+``nsof.sam.postprocess``.
 """
 
 from __future__ import annotations
@@ -46,14 +58,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from nsof_tpu_torch import _build
-from nsof_tpu_torch.data.imgproc import resize_linear
-from nsof_tpu_torch.ops.resize import resize, resize_axis
+from nsof_tpu_torch.ops.resize import resize, resize_axis, resize_linear_u8
+from nsof_tpu_torch.utils.timing import span
 
 __all__ = [
     "PIXEL_MEAN", "PIXEL_STD", "MASK_THRESHOLD", "SamConfig", "SAM_CONFIGS", "TINY_SAM",
     "Sam", "ImageEncoderViT", "PromptEncoder", "MaskDecoder", "rel_pos_table",
     "infer_sam_config", "load_sam_state", "pretrained_sam", "params_from_jax",
-    "synthetic_sam_state_dict", "preprocess_shape", "SamPredictor",
+    "synthetic_sam_state_dict", "preprocess_shape", "preprocess_frames", "encode_images",
+    "transform_coords", "decode_prompts", "postprocess_masks", "SamPredictor",
 ]
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
@@ -249,7 +262,8 @@ class ImageEncoderViT(nn.Module):
             pos = resize_axis(pos, dim, x.shape[dim], "cubic")
         x = x + pos
         for blk in self.blocks:
-            x = blk(x)
+            with span("nsof.sam.encode.window" if blk.window_size else "nsof.sam.encode.global"):
+                x = blk(x)
         return self.neck(x.permute(0, 3, 1, 2))
 
 
@@ -506,23 +520,28 @@ def infer_sam_config(state: Mapping[str, Any]) -> SamConfig:
     raise ValueError(f"unknown SAM encoder width {dim}")
 
 
-def load_sam_state(path: str, config: Optional[SamConfig] = None
-                   ) -> tuple[SamConfig, dict[str, torch.Tensor]]:
-    """(config, state dict) of an official ``sam_vit_*.pth``; the config
+def load_sam_state(source, config: Optional[SamConfig] = None
+                   ) -> tuple[SamConfig, Mapping[str, torch.Tensor]]:
+    """(config, state dict) of an official ``sam_vit_*.pth`` (a path) or of
+    a state dict in its layout (a mapping, returned as it is); the config
     inferred unless given (as ``convert_sam``'s)."""
     from nsof_tpu_torch.models.convert import load_torch_state_dict
 
-    state = load_torch_state_dict(path)
+    state = source if isinstance(source, Mapping) else load_torch_state_dict(source)
     return config or infer_sam_config(state), state
 
 
-def pretrained_sam(path: str, config: Optional[SamConfig] = None) -> Sam:
-    """:class:`Sam` with an official checkpoint's weights (all of them, by
-    their own names: ``load_state_dict`` is strict), on the CPU."""
-    cfg, state = load_sam_state(path, config)
-    model = Sam(cfg)
-    model.load_state_dict(state)
-    return model
+def pretrained_sam(source, config: Optional[SamConfig] = None, device="cpu") -> Sam:
+    """:class:`Sam` with an official checkpoint's weights (a path, or a
+    state dict in its layout: :func:`load_sam_state`), all of them by their
+    own names (``load_state_dict`` is strict), on ``device``.  The model is
+    built without initialising its weights and takes the state's tensors,
+    moved to ``device``: a state already there is not copied."""
+    cfg, state = load_sam_state(source, config)
+    with torch.device("meta"):
+        model = Sam(cfg)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.to(device)
 
 
 def _flax_sources(cfg: SamConfig):
@@ -776,15 +795,74 @@ def preprocess_shape(h: int, w: int, target: int) -> tuple[int, int]:
     return int(h * scale + 0.5), int(w * scale + 0.5)
 
 
+@functools.lru_cache(maxsize=8)
+def _pixel_stats(device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std) of the pixels on ``device``, uploaded once."""
+    return (torch.tensor(PIXEL_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(PIXEL_STD, dtype=torch.float32, device=device))
+
+
+def preprocess_frames(model: Sam, frames: torch.Tensor) -> torch.Tensor:
+    """uint8 RGB frames ``[B, H, W, 3]`` → the encoder's ``[B, 3, S, S]``
+    input on their device (sam.py:164-174 with the predictor's resize): the
+    longest side resized to ``img_size`` with ``cv2.resize(INTER_LINEAR)``'s
+    arithmetic (:func:`resize_linear_u8`), normalised, zero-padded to the
+    square."""
+    with span("nsof.sam.preprocess"):
+        tgt = model.config.img_size
+        nh, nw = preprocess_shape(frames.shape[1], frames.shape[2], tgt)
+        mean, std = _pixel_stats(str(frames.device))
+        x = (resize_linear_u8(frames, nw, nh).to(torch.float32) - mean) / std
+        return F.pad(x.permute(0, 3, 1, 2), (0, tgt - nw, 0, tgt - nh))
+
+
+def encode_images(model: Sam, x: torch.Tensor) -> torch.Tensor:
+    """The image encoder on ``[B, 3, S, S]`` → ``[B, prompt_dim, S/16, S/16]``."""
+    with span("nsof.sam.encode"):
+        return model.image_encoder(x)
+
+
+def transform_coords(coords: torch.Tensor, orig_size: tuple[int, int],
+                     input_size: tuple[int, int]) -> torch.Tensor:
+    """``[..., 2]`` (x, y) float32 in the frame's pixels → the resized
+    frame's (ResizeLongestSide.apply_coords_torch)."""
+    (h0, w0), (nh, nw) = orig_size, input_size
+    return torch.stack([coords[..., 0] * (nw / w0), coords[..., 1] * (nh / h0)], dim=-1)
+
+
+def decode_prompts(model: Sam, embeddings: torch.Tensor, boxes=None, coords=None, labels=None,
+                   mask_input=None, image_index: Optional[torch.Tensor] = None):
+    """Prompts in the resized frame's pixels → (low-res logits ``[N, nm,
+    4S', 4S']``, IoU ``[N, nm]``) of every mask token: the prompt encoder,
+    then the mask decoder with each prompt on the embedding of its frame,
+    ``embeddings[image_index]`` (``embeddings`` broadcast when None)."""
+    with span("nsof.sam.decode"):
+        pe = model.prompt_encoder
+        sparse, dense = pe(coords, labels, boxes, mask_input)
+        if image_index is not None:
+            embeddings = embeddings.index_select(0, image_index)
+        return model.mask_decoder(embeddings, pe.get_dense_pe(), sparse, dense)
+
+
+def postprocess_masks(low_res: torch.Tensor, input_size: tuple[int, int],
+                      orig_size: tuple[int, int], img_size: int) -> torch.Tensor:
+    """Low-res logits → the frame's logits (sam.py:133-162): linear (JAX's
+    weights, antialiased when shrinking) to ``img_size``, the un-padded
+    region cropped, linear to the frame's size."""
+    nh, nw = input_size
+    up = resize(low_res, (img_size, img_size), "linear")[..., :nh, :nw]
+    return resize(up, orig_size, "linear")
+
+
 class SamPredictor:
     """Image-at-a-time promptable segmentation, the JAX ``SamPredictor``'s
     counterpart.
 
-    :meth:`set_image` resizes the longest side to ``img_size``
-    (``cv2.resize(INTER_LINEAR)``'s arithmetic, :func:`resize_linear`, on the
-    host), uploads the uint8 image, normalises and zero-pads it to a square
-    on the device and runs the encoder once.  :meth:`predict` embeds box and
-    point prompts, decodes and resizes the logits back to the frame.  Takes a
+    :meth:`set_image` uploads the uint8 image and runs
+    :func:`preprocess_frames` (the longest side resized to ``img_size`` with
+    ``cv2.resize(INTER_LINEAR)``'s arithmetic, on the device) and
+    :func:`encode_images` once.  :meth:`predict` embeds box and point
+    prompts, decodes and resizes the logits back to the frame.  Takes a
     :class:`Sam` holding its weights; runs on ``device`` (default the CUDA
     device; raises ``RuntimeError`` without one unless ``device='cpu'``)."""
 
@@ -792,37 +870,27 @@ class SamPredictor:
         self.device = _build.resolve_device(device)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.config = model.config
-        self._mean = torch.tensor(PIXEL_MEAN, dtype=torch.float32, device=self.device)
-        self._std = torch.tensor(PIXEL_STD, dtype=torch.float32, device=self.device)
         self._embedding = None
         self._input_size = None
         self._orig_size = None
 
     def preprocess(self, image_rgb: np.ndarray) -> torch.Tensor:
         """uint8 ``[H, W, 3]`` RGB → the encoder's ``[1, 3, S, S]`` input on
-        the device: the longest side resized to ``img_size`` on the host, the
-        uint8 upload normalised and zero-padded to the square."""
-        tgt = self.config.img_size
-        nh, nw = preprocess_shape(*image_rgb.shape[:2], tgt)
-        resized = resize_linear(np.ascontiguousarray(image_rgb), nw, nh)
-        x = (torch.from_numpy(resized).to(self.device).to(torch.float32) - self._mean) / self._std
-        return F.pad(x.permute(2, 0, 1), (0, tgt - nw, 0, tgt - nh))[None]
+        the device (:func:`preprocess_frames`)."""
+        frame = torch.from_numpy(np.ascontiguousarray(image_rgb)).to(self.device)
+        return preprocess_frames(self.model, frame[None])
 
     def set_image(self, image_rgb: np.ndarray) -> None:
         h0, w0 = image_rgb.shape[:2]
         x = self.preprocess(image_rgb)
         with torch.inference_mode():
-            self._embedding = self.model.image_encoder(x)
+            self._embedding = encode_images(self.model, x)
         self._input_size = preprocess_shape(h0, w0, self.config.img_size)
         self._orig_size = (h0, w0)
 
-    def _transform_coords(self, coords: np.ndarray) -> np.ndarray:
-        h0, w0 = self._orig_size
-        nh, nw = self._input_size
-        out = np.asarray(coords, np.float32).copy()
-        out[..., 0] *= nw / w0
-        out[..., 1] *= nh / h0
-        return out
+    def _coords(self, coords) -> torch.Tensor:
+        c = torch.as_tensor(np.asarray(coords, np.float32), device=self.device)
+        return transform_coords(c, self._orig_size, self._input_size)
 
     def predict(self, boxes: Optional[np.ndarray] = None,
                 point_coords: Optional[np.ndarray] = None,
@@ -839,30 +907,24 @@ class SamPredictor:
         dev = self.device
         coords = labels = bxs = m_in = None
         if point_coords is not None:
-            coords = torch.from_numpy(self._transform_coords(point_coords)).to(dev)
+            coords = self._coords(point_coords)
             labels = torch.as_tensor(np.asarray(point_labels), dtype=torch.int32, device=dev)
         if boxes is not None:
-            b = self._transform_coords(np.asarray(boxes, np.float32).reshape(-1, 2, 2))
-            bxs = torch.from_numpy(b.reshape(-1, 4)).to(dev)
+            bxs = self._coords(np.asarray(boxes, np.float32).reshape(-1, 2, 2)).reshape(-1, 4)
         if mask_input is not None:
             m_in = torch.as_tensor(np.asarray(mask_input, np.float32), device=dev)
-        m = self.model
         with torch.inference_mode():
-            sparse, dense = m.prompt_encoder(coords, labels, bxs, m_in)
-            low_res, iou = m.mask_decoder(self._embedding, m.prompt_encoder.get_dense_pe(),
-                                          sparse, dense)
-        sl = slice(1, None) if multimask_output else slice(0, 1)  # C masks: 3, or the first
-        low_res, iou = low_res[:, sl], iou[:, sl]
-        masks = self.postprocess(low_res)
-        if not return_logits:
-            masks = masks > MASK_THRESHOLD
+            low_res, iou = decode_prompts(self.model, self._embedding, bxs, coords, labels, m_in)
+            sl = slice(1, None) if multimask_output else slice(0, 1)  # C masks: 3, or the first
+            low_res, iou = low_res[:, sl], iou[:, sl]
+            with span("nsof.sam.postprocess"):
+                masks = self.postprocess(low_res)
+                if not return_logits:
+                    masks = masks > MASK_THRESHOLD
         return masks.cpu().numpy(), iou.cpu().numpy(), low_res.cpu().numpy()
 
     def postprocess(self, low_res: torch.Tensor) -> torch.Tensor:
-        """Low-res logits → the original frame's logits (sam.py:133-162):
-        linear (JAX's weights, antialiased when shrinking) to ``img_size``,
-        the un-padded region cropped, linear to the original size."""
-        tgt = self.config.img_size
-        nh, nw = self._input_size
-        up = resize(low_res, (tgt, tgt), "linear")[..., :nh, :nw]
-        return resize(up, self._orig_size, "linear")
+        """Low-res logits → the original frame's logits
+        (:func:`postprocess_masks`)."""
+        return postprocess_masks(low_res, self._input_size, self._orig_size,
+                                 self.config.img_size)

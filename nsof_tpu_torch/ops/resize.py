@@ -17,6 +17,11 @@ float32 matrix products in full float32 (no TF32):
   relative-position tables;
 - ``'cubic'`` (Keys, a = −0.5): SAM's position embedding at another input
   size.
+
+:func:`resize_linear_u8` is the other resize SAM takes: the frame's
+longest side to the encoder's size, ``cv2.resize(INTER_LINEAR)`` on uint8
+as :func:`nsof_tpu_torch.data.imgproc.resize_linear` computes it on the
+host, in the same integer arithmetic on the device, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,7 +32,10 @@ import math
 
 import torch
 
-__all__ = ["KERNELS", "weight_mat", "full_f32_matmul", "resize_axis", "resize"]
+from nsof_tpu_torch.data.imgproc import linear_taps_u8
+
+__all__ = ["KERNELS", "weight_mat", "full_f32_matmul", "resize_axis", "resize",
+           "resize_linear_u8"]
 
 
 def _lanczos3(x: torch.Tensor) -> torch.Tensor:
@@ -116,3 +124,34 @@ def resize(x: torch.Tensor, hw: tuple[int, int], kernel: str) -> torch.Tensor:
         with full_f32_matmul():
             x = torch.matmul(weight_mat(x.shape[-2], h, kernel, str(x.device)).T, x)
     return resize_axis(x, -1, w, kernel)
+
+
+@functools.lru_cache(maxsize=32)
+def _taps_u8(n_in: int, n_out: int, clamp: bool, device: str) -> tuple[torch.Tensor, ...]:
+    """:func:`~nsof_tpu_torch.data.imgproc.linear_taps_u8` on ``device``,
+    built once per size (the upload is the only host synchronisation)."""
+    return tuple(torch.from_numpy(t).to(device) for t in linear_taps_u8(n_in, n_out, clamp))
+
+
+def resize_linear_u8(img: torch.Tensor, nw: int, nh: int) -> torch.Tensor:
+    """``cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)`` of
+    uint8 ``[..., H, W, C]`` images on their device, equal bit for bit to
+    :func:`~nsof_tpu_torch.data.imgproc.resize_linear` of each: 11-bit
+    fixed-point weights, the rows blended along x, then the vectorised row
+    blend (16-bit high products, ``(x + 2) >> 2``).  The two source rows of
+    each output row are taken first, so each row is blended once."""
+    if img.dtype != torch.uint8 or img.dim() < 3:
+        raise ValueError(f"resize_linear_u8 takes uint8 [..., H, W, C], got {img.dtype} "
+                         f"{tuple(img.shape)}")
+    h, w = img.shape[-3:-1]
+    dev = str(img.device)
+    x0, x1, ax0, ax1 = _taps_u8(w, nw, True, dev)
+    y0, y1, by0, by1 = _taps_u8(h, nh, False, dev)
+
+    def rows(y):
+        src = img.index_select(-3, y).to(torch.int32)
+        blend = src.index_select(-2, x0) * ax0[:, None] + src.index_select(-2, x1) * ax1[:, None]
+        return blend >> 4
+
+    v = ((rows(y0) * by0[:, None, None]) >> 16) + ((rows(y1) * by1[:, None, None]) >> 16)
+    return ((v + 2) >> 2).clamp_(0, 255).to(torch.uint8)

@@ -236,9 +236,12 @@ def test_generate_gt_masks_matches_jax(tmp_path, sam_pair, chain):
             assert (mask == ref).mean() >= 0.999 and mask.any()
 
 
-def test_generate_gt_masks_feeds_load_scene(tmp_path):
+def test_generate_gt_masks_feeds_load_scene(tmp_path, sam_pair):
     """Masks made for JPEG frames land where the scene loader looks for
-    them (``gtmask/<frame name>``) and load as the scene's ground truth."""
+    them (``gtmask/<frame name>``) and load as the scene's ground truth.
+    Taken ``batch`` frames at a time (SAM's one batched step a group, the
+    brightness segmenter frame by frame), the written PNGs are the same
+    bytes as one frame at a time."""
     import scipy.io
 
     from nsof_tpu_torch.data.scenes import load_scene
@@ -262,3 +265,12 @@ def test_generate_gt_masks_feeds_load_scene(tmp_path):
         want = np.logical_or.reduce(seg(rgb, "bright"))
         assert r.n_instances == 2
         np.testing.assert_array_equal(gt > 0, want)
+    for kind, chain in (("brightness", seg), ("sam", sam_pair[1])):
+        written = {}
+        for batch in (1, 2, 3):
+            out = tmp_path / f"{kind}{batch}"
+            res = tgt.generate_gt_masks(scene / "RGB", scene / "imgs.txt", out, "bright", chain,
+                                        batch=batch)
+            assert [(r.frame, r.n_instances) for r in res] == [(n, 2) for n in names]
+            written[batch] = [(out / n).read_bytes() for n in names]
+        assert written[1] == written[2] == written[3], kind

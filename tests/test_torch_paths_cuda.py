@@ -12,8 +12,9 @@ equals the plain route and, with cuDNN's TF32 off, the CPU within 1e-3 px.
 One RAFT train step (``make_train_step``, 64×96, B = 2) on the card equals
 the CPU port's to the CPU tests' bounds (``chip_smoke.drive_train_parity``),
 launches no kernel of the port and makes no host synchronisation.
-The ground-truth tooling at its test sizes: ``SamPredictor`` (``TINY_SAM``)
-and ``TorchOwlVitBoxProposer`` (``TINY_OWLVIT``) on the card against the CPU
+The ground-truth tooling at its test sizes: ``SamPredictor`` (``TINY_SAM``),
+the batched ``sam_gt_batch`` (no host synchronisation once warm) and
+``TorchOwlVitBoxProposer`` (``TINY_OWLVIT``) on the card against the CPU
 port, cuDNN's TF32 off, within ``chip_smoke``'s GT_SAM_F32_REL and
 GT_OWL_F32_REL, no kernel of the port launched.  ``OwlVitBoxProposer`` and
 ``TransformersSamSegmenter`` built without a device, from tiny local
@@ -211,6 +212,37 @@ def test_sam_predictor_on_the_card(cuda_device):
     assert not any(_build.LAUNCHES.values())
     for g, w in zip(got, want):
         assert gap(g, w) <= GT_SAM_F32_REL
+
+
+@pytest.mark.cuda
+def test_sam_gt_batch_on_the_card(cuda_device):
+    """The batched ground-truth step on three frames with 0, 1 and 3 boxes:
+    the card against the CPU port within GT_SAM_F32_REL, cuDNN's TF32 off,
+    and once warm (its resize taps and pixel statistics uploaded) no host
+    synchronisation."""
+    from nsof_tpu_torch.data.gt_tooling import sam_gt_batch
+    from nsof_tpu_torch.models import sam as tsam
+
+    frames = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 256, (3, 60, 80, 3), dtype=np.uint8))
+    boxes = torch.tensor([[5, 6, 50, 40], [0, 0, 80, 60], [10, 20, 30, 50], [40, 5, 79, 59]],
+                         dtype=torch.float32)
+    owner = torch.tensor([1, 2, 2, 2])
+    want = sam_gt_batch(gt_sam(tsam.TINY_SAM), frames, boxes, owner)
+    model = gt_sam(tsam.TINY_SAM, cuda_device)
+    args = (frames.to(cuda_device), boxes.to(cuda_device), owner.to(cuda_device))
+    with f32_convs():
+        sam_gt_batch(model, *args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = sam_gt_batch(model, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for key in ("low_res", "iou"):
+        assert gap(got[key], want[key]) <= GT_SAM_F32_REL, key
+    assert (got["mask"].cpu() != want["mask"]).float().mean() <= 1e-3
+    assert not got["mask"][0].any()
 
 
 @pytest.mark.cuda
