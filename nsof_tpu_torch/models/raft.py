@@ -10,8 +10,11 @@ core/raft.py:86-145).  The modules carry the reference's torch names
 reference checkpoint's keys (:mod:`nsof_tpu_torch.models.convert`).
 
 NCHW inside; :class:`RAFT` takes ``[B, H, W, 3]`` images and returns flows
-``[B, H, W, 2]``, as the JAX model does.  It reproduces the JAX model where
-that differs from the reference:
+``[B, H, W, 2]``, as the JAX model does.  On CUDA the update block runs
+channels-last (:func:`update_layout`): its convolution weights are stored so
+and every activation of a refinement keeps that layout, so cuDNN's NHWC
+convolutions take them with no conversion; the mathematics is the NCHW
+path's.  It reproduces the JAX model where that differs from the reference:
 
 - strided convolutions pad ``k // 2`` on both sides, as torch does (the
   JAX model pins this against Flax's asymmetric ``'SAME'``); every other
@@ -62,6 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from nsof_tpu_torch import _build
 from nsof_tpu_torch.ops.correlation import window_sample, windowed_correlation_tiled
 from nsof_tpu_torch.utils.timing import span
 
@@ -443,6 +447,24 @@ class SmallUpdateBlock(nn.Module):
         return net, None, self.flow_head(net)
 
 
+def update_layout(device: torch.device) -> torch.memory_format:
+    """The memory layout of the update block's weights and activations on
+    ``device``: channels-last on CUDA, where cuDNN's convolutions are NHWC
+    kernels and an NCHW tensor reaches them through a conversion each way;
+    NCHW elsewhere, the CPU's path that the JAX-parity tests hold."""
+    return torch.channels_last if device.type == "cuda" else torch.contiguous_format
+
+
+def store_conv_weights(module: nn.Module, layout: torch.memory_format) -> None:
+    """Store the weight of each convolution of ``module`` in ``layout``, in
+    place: each stays the same ``Parameter`` (optimizers, ``state_dict()``
+    keys and loading are unchanged) and one already so is left alone."""
+    with torch.no_grad(), torch.inference_mode(False):
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d) and not m.weight.is_contiguous(memory_format=layout):
+                m.weight.data = m.weight.data.contiguous(memory_format=layout)
+
+
 def coords_grid(b: int, h: int, w: int, device=None) -> torch.Tensor:
     """``[B, H, W, 2]`` (x, y) pixel-coordinate grid (core/utils/utils.py:74-77)."""
     ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
@@ -508,6 +530,9 @@ class RAFT(nn.Module):
         cfg = self.cfg
         iters = iters or cfg.iters
         hdim = cfg.hidden_dim
+        layout = update_layout(image1.device)
+        # the first call on a device stores the weights; later calls find them so
+        store_conv_weights(self.update_block, layout)
         with span("nsof.raft.encode"):
             img1 = (2.0 * (image1.float() / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
             img2 = (2.0 * (image2.float() / 255.0) - 1.0).permute(0, 3, 1, 2).contiguous()
@@ -515,8 +540,8 @@ class RAFT(nn.Module):
             with self._autocast(img1.device):
                 fmaps = self.fnet(torch.cat([img1, img2], dim=0)).float()
                 cmap = self.cnet(img1)
-                net = torch.tanh(cmap[:, :hdim])
-                inp = F.relu(cmap[:, hdim:])
+                net = torch.tanh(cmap[:, :hdim]).contiguous(memory_format=layout)
+                inp = F.relu(cmap[:, hdim:]).contiguous(memory_format=layout)
         fmap1 = fmaps[:b].permute(0, 2, 3, 1)
         fmap2 = fmaps[b:].permute(0, 2, 3, 1)
         with span("nsof.raft.corr"):
@@ -541,6 +566,7 @@ class RAFT(nn.Module):
             coords1 = coords1 + flow_init
 
         def step(net, coords1):
+            # corr and flow: channels-last views of [B, H, W, C] tensors
             with span("nsof.raft.lookup"):
                 corr = lookup(coords1).permute(0, 3, 1, 2)
             with span("nsof.raft.update"):
@@ -559,6 +585,8 @@ class RAFT(nn.Module):
         up_mask = None
         for _ in range(iters):
             coords1 = coords1.detach()
+            if layout == torch.channels_last:
+                _build.COUNTS["raft_update_nhwc"] += 1
             if remat:
                 net, up_mask, coords1, flow_up = checkpoint(step, net, coords1, use_reentrant=False,
                                                             preserve_rng_state=False)

@@ -8,7 +8,9 @@ grasp cut with a 64×96 window, B = 4.  ``stream_masks`` in 'auto' (K8,
 K1–K4, K10 and K13) and ``stream_masks_chunked`` equal the plain route on 9 frames of
 that cut with a textured block moving (2, 3) px a frame, n_substeps 1000.
 ``deep_roi_flow_batch`` on RAFT-small and RAFT-basic (K1 on RGB windows)
-equals the plain route and, with cuDNN's TF32 off, the CPU within 1e-3 px.
+equals the plain route and, with cuDNN's TF32 off, the CPU within 1e-3 px;
+RAFT's update block runs channels-last there, with no cuDNN layout
+conversion inside its ``nsof.raft.update`` spans.
 One RAFT train step (``make_train_step``, 64×96, B = 2) on the card equals
 the CPU port's to the CPU tests' bounds (``chip_smoke.drive_train_parity``),
 launches no kernel of the port and makes no host synchronisation.
@@ -174,6 +176,40 @@ def test_deep_roi_flow_batch_on_the_card(cuda_device, small):
         want = tdf.deep_roi_flow_batch(mem.cpu(), prev.cpu(), nxt.cpu(), cfg, cpu)
     assert out["any_active"].all()
     torch.testing.assert_close(out["flow"].cpu(), want["flow"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_raft_update_runs_channels_last_on_the_card(cuda_device, tmp_path):
+    """RAFT-basic at 46×80 on the 1/8 grid (368×640 frames), B = 2, 4
+    refinements: every refinement's update block runs channels-last
+    (``COUNTS['raft_update_nhwc']``), its convolution weights are stored so,
+    and no cuDNN layout conversion (``nchwToNhwc`` / ``nhwcToNchw``) runs
+    inside an ``nsof.raft.update`` span of the traced call."""
+    from benchmark.spans import Spans
+    from benchmark.trace import traced
+    from nsof_tpu_torch.models.raft import RAFT, RaftConfig
+
+    torch.manual_seed(0)
+    model = RAFT(RaftConfig(iters=4)).to(cuda_device).eval()
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    a, b = (torch.randint(0, 256, (2, 368, 640, 3), generator=gen, device=cuda_device,
+                          dtype=torch.uint8) for _ in range(2))
+    with torch.inference_mode():
+        model(a, b, test_mode=True)  # stores the weights, warms cuDNN up
+        _build.reset_launches()
+        with traced(tmp_path / "raft.trace.json", with_stack=False) as got:
+            model(a, b, test_mode=True)
+    assert _build.COUNTS["raft_update_nhwc"] == 4
+    convs = [m for m in model.update_block.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert len(convs) == 15
+    assert all(m.weight.is_contiguous(memory_format=torch.channels_last) for m in convs)
+    spans = Spans(got[0])
+    names = [n for v in spans.spans.values() for *_, n in v]
+    assert names.count("nsof.raft.update") == 4
+    update = [op[2] for op, path in spans.ops if "nsof.raft.update" in path]
+    assert len(update) > 4 * 15, update
+    layout = [k for k in update if "nchwToNhwc" in k or "nhwcToNchw" in k]
+    assert not layout, layout
 
 
 @pytest.mark.cuda

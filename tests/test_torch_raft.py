@@ -24,9 +24,13 @@ Measured here: the flow within 1.3e-5 px of Flax for RAFT-basic and
 initialisation, flows ≈ 1–1.6 px) within 8.0e-6 px.  The port's two corr
 modes under one set of weights differ by 8.9e-7 px (basic) and 7.6e-6 px
 (small); the blocks are held to 1e-5.
+
+The update block's channels-last path (the CUDA layout, ``update_layout``)
+against its NCHW one, alone and inside ``RAFT.forward``.
 """
 
 import dataclasses
+import io
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +41,7 @@ import torch
 from nsof_tpu.models import raft as jraft
 from nsof_tpu.models.convert import convert_raft
 from nsof_tpu.ops import correlation as jcorr
+from nsof_tpu_torch import _build
 from nsof_tpu_torch.models import raft as traft
 from nsof_tpu_torch.models.convert import params_from_jax
 from nsof_tpu_torch.ops import correlation as tcorr
@@ -160,6 +165,90 @@ def test_bfloat16_compute_dtype(small, pair):
     assert got.dtype == torch.float32
     err = (got - want).abs().max().item()
     assert 0 < err < 0.05 * want.abs().max().item()
+
+
+CL = torch.channels_last
+
+
+@pytest.mark.parametrize("small", [False, True], ids=["basic", "small"])
+def test_update_block_channels_last(small):
+    """The update block on channels-last inputs and weights (the CUDA path)
+    equals it on NCHW ones within 1e-5; its outputs are channels-last, and
+    each of its convolutions (15 basic, 9 small) saw a channels-last input
+    and weight.  ``corr`` and ``flow`` come as RAFT passes them: channels-last
+    views of ``[B, H, W, C]`` tensors."""
+    torch.manual_seed(5)
+    cfg = traft.RaftConfig(small=small)
+    block = (traft.SmallUpdateBlock if small else traft.BasicUpdateBlock)(cfg).eval()
+    b, h, w = 2, 6, 10
+    cor_planes = cfg.corr_levels * (2 * cfg.corr_radius + 1) ** 2
+    net = torch.tanh(torch.randn(b, cfg.hidden_dim, h, w))
+    inp = torch.relu(torch.randn(b, cfg.context_dim, h, w))
+    corr = torch.randn(b, h, w, cor_planes).permute(0, 3, 1, 2)
+    flow = (3 * torch.randn(b, h, w, 2)).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        want = block(net, inp, corr.contiguous(), flow.contiguous())
+        convs = [m for m in block.modules() if isinstance(m, torch.nn.Conv2d)]
+        params = [m.weight for m in convs]
+        traft.store_conv_weights(block, CL)
+        assert [m.weight for m in convs] == params  # the same Parameter objects
+        seen = []
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out: seen.append(args[0].is_contiguous(memory_format=CL)
+                                               and mod.weight.is_contiguous(memory_format=CL)))
+            for m in convs]
+        got = block(net.contiguous(memory_format=CL), inp.contiguous(memory_format=CL), corr,
+                    flow)
+        for hook in hooks:
+            hook.remove()
+    assert len(convs) == (9 if small else 15) and seen == [True] * len(convs)
+    for name, x, y in zip(("net", "up_mask", "delta"), got, want):
+        if name == "up_mask" and small:
+            assert x is None and y is None
+            continue
+        assert x.is_contiguous(memory_format=CL), name
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("small", [False, True], ids=["basic", "small"])
+def test_raft_channels_last_path(small, pair, monkeypatch):
+    """``RAFT.forward`` with :func:`update_layout` giving channels-last (the
+    CUDA path, reached here by monkeypatching it): the flow equals the NCHW
+    path's within FLOW_TOL, ``COUNTS['raft_update_nhwc']`` counts the
+    refinements (0 on the default CPU path), the weights are stored
+    channels-last in the same ``Parameter`` objects, and a ``state_dict()``
+    saved from either layout loads into the other with equal values."""
+    torch.manual_seed(6)
+    nchw = traft.RAFT(traft.RaftConfig(small=small, iters=ITERS))
+    _build.reset_launches()
+    want = _port_flow(nchw, *pair, test_mode=True)
+    assert _build.COUNTS["raft_update_nhwc"] == 0
+
+    nhwc = traft.RAFT(nchw.cfg)
+    nhwc.load_state_dict(nchw.state_dict())
+    params = list(nhwc.parameters())
+    monkeypatch.setattr(traft, "update_layout", lambda device: CL)
+    got = _port_flow(nhwc, *pair, test_mode=True)
+    assert _build.COUNTS["raft_update_nhwc"] == ITERS
+    assert list(nhwc.parameters()) == params
+    convs = [m for m in nhwc.update_block.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert all(m.weight.is_contiguous(memory_format=CL) for m in convs)
+    assert any(not m.weight.is_contiguous() for m in convs)  # some layouts changed
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=FLOW_TOL)
+
+    def saved(model):
+        buf = io.BytesIO()
+        torch.save(model.state_dict(), buf)
+        buf.seek(0)
+        return torch.load(buf)
+
+    for src, dst in ((nhwc, traft.RAFT(nchw.cfg)), (nchw, nhwc)):
+        dst.load_state_dict(saved(src))
+        for (key, x), y in zip(dst.state_dict().items(), src.state_dict().values()):
+            assert torch.equal(x, y), key
+    # loading kept the destination's layout
+    assert all(m.weight.is_contiguous(memory_format=CL) for m in convs)
 
 
 def _fmaps(seed, b=2, h=7, w=9, c=16):
