@@ -85,7 +85,7 @@ from nsof_tpu_torch.ops.farneback import (
     _tap_sum,
     border_scale,
 )
-from nsof_tpu_torch.utils.timing import span
+from nsof_tpu_torch.utils.timing import count, span
 
 CANVAS = 32  # canvas granularity of the JAX route's tile grid
 R1_MARGIN = (8, 16)  # r1's margin ring, rows and columns
@@ -1059,6 +1059,7 @@ def farneback_fast(
     with span("nsof.farneback"):
         img0 = torch.as_tensor(prev).to(dev, torch.float32).contiguous()
         img1 = torch.as_tensor(next_).to(dev, torch.float32).contiguous()
+        count("nsof.flow", rows=img0.shape[0], px=img0.shape[1] * img0.shape[2])
         if kernel_mode in ("fused", "fused_f32"):
             m_dtype = torch.bfloat16 if kernel_mode == "fused" else torch.float32
             dx, dy = _farneback_fast_fused(img0, img1, params, warp_radius, m_dtype)

@@ -38,7 +38,7 @@ from nsof_tpu_torch.ops import roi as roi_ops
 from nsof_tpu_torch.pipelines.prediction import warp_region
 from nsof_tpu_torch.pipelines.segmentation import seg_head_window, seg_head_window_batch
 from nsof_tpu_torch.pipelines.tracking import tracking_head_window
-from nsof_tpu_torch.utils.timing import span
+from nsof_tpu_torch.utils.timing import count, span
 
 MIN_REGION_PX = 64  # raft_seg.py:133-135
 
@@ -130,6 +130,7 @@ def _backend_flow(backend: DeepBackend, img1: torch.Tensor, img2: torch.Tensor) 
     h, w = img1.shape[1:3]
     p1, (t, left) = _pad8(img1)
     p2, _ = _pad8(img2)
+    count("nsof.flow", rows=p1.shape[0], px=p1.shape[1] * p1.shape[2])
     return backend.apply(p1, p2)[:, t: t + h, left: left + w]
 
 
@@ -158,6 +159,8 @@ def _deep_roi_gate(mem, prev_rgb, next_rgb, cfg: PipelineConfig, backend: DeepBa
                   & ((box[:, 3] - box[:, 1]) >= MIN_REGION_PX))
         oys, oxs = roi_ops.window_origin(box, wh, ww, h, w)
         region_pct = roi_ops.region_percentage(box, h, w)
+        count("nsof.gate", rows=box.shape[0], active=active, box=box, oys=oys, oxs=oxs,
+              win=(wh, ww))
     with span("nsof.crop"):
         p_win = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
         n_win = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)

@@ -33,7 +33,7 @@ from nsof_tpu_torch.ops.farneback import farneback, farneback_batch
 from nsof_tpu_torch.ops.farneback_fast import farneback_fast
 from nsof_tpu_torch.ops.morphology import ellipse_se
 from nsof_tpu_torch.ops.morphology_fast import dilate_erode_n_masked
-from nsof_tpu_torch.utils.timing import span
+from nsof_tpu_torch.utils.timing import count, span
 
 
 def _seg_head_mag2(dx: torch.Tensor, dy: torch.Tensor, inbox: torch.Tensor,
@@ -93,6 +93,8 @@ def seg_batch_fast(
             active = r["any_active"]
             oys, oxs = roi_ops.window_origin(box, wh, ww, h, w)
             region_pct = roi_ops.region_percentage(box, h, w)
+            count("nsof.gate", rows=box.shape[0], active=active, box=box, oys=oys, oxs=oxs,
+                  win=(wh, ww))
         with span("nsof.crop"):
             p_win = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
             n_win = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)

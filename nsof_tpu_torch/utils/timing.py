@@ -8,12 +8,14 @@ optical_flow_seg.py:51-59) and, for GPU backends, ``torch.cuda.synchronize``
 of a result (where the JAX package calls ``jax.block_until_ready``) before a
 clock is read.
 
-:func:`span` names a layer of the port's main path in a profiler trace; it
-costs one flag read when no profiler records.
+:func:`span` names a layer of the port's main path in a profiler trace and
+:func:`count` records the work a layer was given; each costs one flag read
+when no profiler records.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import pathlib
 import time
@@ -24,6 +26,8 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 _NO_SPAN = contextlib.nullcontext()
+COUNT_KEEP = 64  # entries kept a name: the newest
+_COUNTS: dict[str, collections.deque] = {}
 
 
 def span(name: str):
@@ -40,6 +44,36 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+def count(name: str, **values) -> None:
+    """The work a layer was given, for a reader of the trace: while a
+    ``torch.profiler`` records, ``values`` appended as one entry under
+    ``name`` to an in-memory record that keeps the newest
+    :data:`COUNT_KEEP` entries a name; otherwise nothing.  The off check
+    reads the profiler's Python flag, as :func:`span` does.  Values are host
+    ints or device tensors kept by reference: a count never copies,
+    reduces, synchronises or launches, so what lives on the device is read
+    after the traced window (:func:`counted`).  Host counts that are always
+    on stay in ``_build.COUNTS``.  Usage::
+
+        count("nsof.flow", rows=b, px=h * w)
+    """
+    if _autograd_profiler._is_profiler_enabled:
+        rec = _COUNTS.get(name)
+        if rec is None:
+            rec = _COUNTS[name] = collections.deque(maxlen=COUNT_KEEP)
+        rec.append(values)
+
+
+def counted(name: str) -> list[dict]:
+    """The entries :func:`count` recorded under ``name``, oldest first."""
+    return list(_COUNTS.get(name, ()))
+
+
+def reset_counts() -> None:
+    """Forget every recorded entry."""
+    _COUNTS.clear()
 
 
 def _cuda_devices(tree, found: set) -> set:
@@ -131,7 +165,17 @@ def profile_trace(log_dir: str):
     ``nsof.farneback`` (``nsof.farneback.pyramid``, ``.expand`` and
     ``.update`` a pyramid level), ``nsof.head`` and ``nsof.scatter``;
     ``nsof.stream_masks`` holds ``nsof.frame_sim.compress``,
-    ``nsof.frame_sim.scan`` and then ``nsof.seg_batch_fast``.
+    ``nsof.frame_sim.scan`` and then ``nsof.seg_batch_fast``;
+    ``nsof.deep_roi_flow_batch`` holds ``nsof.gate``, ``nsof.crop``,
+    ``nsof.deep.flow`` (the backend's ``nsof.raft.*`` or
+    ``nsof.flowformer.*`` spans), ``nsof.head`` and ``nsof.scatter``;
+    ``nsof.sam_gt_batch`` holds ``nsof.sam.preprocess``, ``nsof.sam.encode``
+    (``.window`` and ``.global`` a block), ``nsof.sam.decode`` and
+    ``nsof.sam.postprocess``.  While it records, :func:`count` keeps
+    ``nsof.gate`` (each gate call's ``rows``, ``active``, ``box``, window
+    origins ``oys``/``oxs`` and shape ``win``) and ``nsof.flow`` (the
+    ``rows`` and ``px`` a row the flow computed), read by
+    :func:`counted` once the window is over.
 
     Usage::
 

@@ -14,6 +14,15 @@ card (``-m cuda``) every device operation of a traced ``seg_batch_fast``
 is charged by correlation id to a layer span, K4's to
 ``nsof.farneback.update``.  Sizes: 128×160 frames, memsize 32, a 128×128
 window (levels 0–2 on both presets), B = 4.
+
+The work counters (``timing.count``): nothing is recorded without a
+profiler; under one, a ``seg_batch_fast`` call and a deep ROI step (a stub
+backend on 96×144 RGB frames, a 60×90 window the backend sees padded to
+64×96) each record one ``nsof.gate`` and one ``nsof.flow`` entry, B = 4 with
+row 0 inactive, and their outputs are bit-equal to those of an unprofiled
+call; the kept area from box and window coordinates
+(``benchmark/counts.py::kept_px``) equals the summed box mask of the active
+rows; the record keeps the newest 64 entries a name.
 """
 
 import dataclasses
@@ -27,10 +36,14 @@ from nsof_tpu_torch.config import DATASETS
 from nsof_tpu_torch.device.frame_sim import FrameSimConfig
 from nsof_tpu_torch.ops import farneback_fast as tff
 from nsof_tpu_torch.ops.farneback import _effective_levels
+from nsof_tpu_torch.ops import roi as roi_ops
+from nsof_tpu_torch.pipelines import deep_flow as tdf
 from nsof_tpu_torch.pipelines import stream as tstream
 from nsof_tpu_torch.pipelines.segmentation import seg_batch_fast
 from nsof_tpu_torch.utils import timing
 from torch_single_thread import one_torch_thread  # noqa: F401  (autouse)
+
+from benchmark.counts import kept_px
 
 H, W, MEMSIZE, WIN, B = 128, 160, 32, 128, 4
 LAYERS = ("nsof.gate", "nsof.crop", "nsof.farneback", "nsof.head", "nsof.scatter")
@@ -146,6 +159,117 @@ def test_stream_masks_nests_the_frame_sim_and_the_seg_tree():
         tstream.stream_masks(frames, cfg, sim, return_flow=True, device="cpu")
     assert _span_tree(prof) == [("nsof.stream_masks", [
         ("nsof.frame_sim.compress", []), ("nsof.frame_sim.scan", []), _seg_tree("grasp")])]
+
+
+def _profiled(fn):
+    """``fn()`` under the profiler → (result, its gate entries, its flow
+    entries)."""
+    timing.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    return out, timing.counted("nsof.gate"), timing.counted("nsof.flow")
+
+
+def _assert_equal(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_equal(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_equal(x, y)
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a, b)
+    else:
+        assert a == b
+
+
+def _assert_kept_px(entry):
+    wh, ww = entry["win"]
+    mask = (roi_ops.window_box_mask(entry["box"], entry["oys"], entry["oxs"], wh, ww)
+            & entry["active"].bool()[:, None, None])
+    assert kept_px(entry) == int(mask.sum())
+
+
+def test_count_records_nothing_without_a_profiler():
+    timing.reset_counts()
+    timing.count("nsof.test", rows=1)
+    assert timing.counted("nsof.test") == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        timing.count("nsof.test", rows=2)
+    timing.count("nsof.test", rows=3)
+    assert timing.counted("nsof.test") == [{"rows": 2}]
+    timing.reset_counts()
+    assert timing.counted("nsof.test") == []
+
+
+def test_count_keeps_the_newest_64_entries():
+    timing.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in range(70):
+            timing.count("nsof.test", rows=i)
+    assert timing.COUNT_KEEP == 64
+    assert [e["rows"] for e in timing.counted("nsof.test")] == list(range(6, 70))
+    timing.reset_counts()
+
+
+@pytest.mark.parametrize("preset", ["grasp", "autodriving"])
+def test_seg_batch_fast_counts_its_gate_and_flow_once(preset):
+    cfg, args = _cfg(preset), _inputs()
+    plain = seg_batch_fast(*args, cfg, return_flow=True, device="cpu")
+    got, gate, flow = _profiled(
+        lambda: seg_batch_fast(*args, cfg, return_flow=True, device="cpu"))
+    _assert_equal(plain, got)
+    assert len(gate) == 1 and len(flow) == 1
+    g = gate[0]
+    assert g["rows"] == B and g["win"] == (WIN, WIN)
+    assert g["active"] is got["any_active"] and g["box"] is got["box"]
+    assert g["active"].tolist() == [False, True, True, True]
+    assert flow[0] == {"rows": B, "px": WIN * WIN}
+    _assert_kept_px(g)
+    assert 0 < kept_px(g) < B * WIN * WIN
+    timing.reset_counts()
+
+
+DEEP_H, DEEP_W, DEEP_WIN = 96, 144, (60, 90)
+
+
+def _deep_cfg():
+    cfg = dataclasses.replace(DATASETS["grasp"], image_h=DEEP_H, image_w=DEEP_W,
+                              window_h=DEEP_WIN[0], window_w=DEEP_WIN[1])
+    return dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, memsize=48))
+
+
+def _deep_inputs():
+    """B = 4 RGB pairs on the 6×9 grid of 16-px cells: row 0 no active
+    cell, rows 1–3 blocks of at least 4×4 cells (64 px), one in the corner."""
+    rng = np.random.default_rng(5)
+    base = (rng.random((B, DEEP_H + 4, DEEP_W + 4, 3)) * 255).astype(np.uint8)
+    prev = torch.from_numpy(np.ascontiguousarray(base[:, 2:2 + DEEP_H, 2:2 + DEEP_W]))
+    nxt = torch.from_numpy(np.ascontiguousarray(base[:, 1:1 + DEEP_H, 3:3 + DEEP_W]))
+    mem = torch.zeros((B, 6, 9), dtype=torch.uint8)
+    mem[1, 1:5, 1:6] = 255
+    mem[2, 2:6, 4:9] = 255
+    mem[3, 0:4, 0:4] = 255
+    return mem, prev, nxt
+
+
+def test_deep_roi_gate_counts_its_gate_and_flow_once():
+    stub = tdf.DeepBackend(apply=lambda a, b: (b.float() - a.float())[..., :2],
+                           device=torch.device("cpu"), model=torch.nn.Identity(), name="stub")
+    cfg, args = _deep_cfg(), _deep_inputs()
+    plain = tdf._deep_roi_gate(*args, cfg, stub)
+    got, gate, flow = _profiled(lambda: tdf._deep_roi_gate(*args, cfg, stub))
+    _assert_equal(plain, got)
+    assert len(gate) == 1 and len(flow) == 1
+    g = gate[0]
+    assert g["rows"] == B and g["win"] == DEEP_WIN and g["active"] is got["any_active"]
+    assert g["active"].tolist() == [False, True, True, True]
+    assert flow[0] == {"rows": B, "px": 64 * 96}  # the window padded to /8
+    _assert_kept_px(g)
+    assert int(got["inbox"].sum()) == kept_px(g) > 0
+    timing.reset_counts()
 
 
 @pytest.fixture
