@@ -84,14 +84,16 @@ flow with TF32 off is held within DEEP_FLOW_TOL:
 
 - ``deep_raft``: RAFT-basic at the raft-things widths, 20 iterations:
   ``deep_roi_flow_step`` (K1 twice, on RGB windows, equal to the plain
-  route; no host synchronisation in the model or the step; its flow within
+  route; no host synchronisation in the model, exactly one in the step: the
+  gate's read of its active rows, by design; its flow within
   DEEP_FLOW_TOL (TF32 off) and DEEP_TF32_TOL (the defaults) of the same
   weights on the CPU) and ``deep_full_flow_step``,
   each timed, the ROI speed-up, FLOPs a pair, a trace;
 - ``deep_alt``: the same weights with ``corr_mode='alternate'``, within
   DEEP_ALT_TOL of all-pairs;
 - ``deep_batch``: ``deep_roi_flow_batch`` at B = 8 on RAFT-small and
-  RAFT-basic against the per-sample steps (TF32 off), the batch at the
+  RAFT-basic against the per-sample steps (TF32 off), exactly one host
+  synchronisation a batch (the gate's index read), the batch at the
   defaults within DEEP_TF32_TOL of the batch with TF32 off, timed; then
   ``BatchingEngine.for_deep_backend`` (RAFT-small) serving 64 requests from
   8 threads, each result equal to its batch's direct ``deep_roi_flow_batch``;
@@ -199,6 +201,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import inspect
 import json
 import math
 import os
@@ -238,6 +241,7 @@ from nsof_tpu_torch.ops.morphology import ellipse_se
 from nsof_tpu_torch.pipelines.prediction import (prediction_batch_fast, prediction_ssim,
                                                  prediction_stages)
 from nsof_tpu_torch.pipelines import runner as trunner
+from nsof_tpu_torch.pipelines import deep_flow as tdeep
 from nsof_tpu_torch.pipelines.deep_flow import (DeepBackend, deep_full_flow_step,
                                                 deep_roi_flow_batch, deep_roi_flow_step)
 from nsof_tpu_torch.pipelines import detection as tdet
@@ -2268,6 +2272,17 @@ def deep_crop_check(frames: torch.Tensor, box: torch.Tensor) -> None:
         raise AssertionError("K1 on the deep RGB crop differs from the plain crop")
 
 
+def deep_gate_sync_only(syncs: dict, what: str) -> None:
+    """A deep ROI step's host synchronisations (:func:`host_syncs`): exactly
+    one, where ``_deep_roi_gate`` reads its active rows' indices so that
+    the backend runs on those rows only."""
+    lines, start = inspect.getsourcelines(tdeep._deep_roi_gate)
+    line = start + next(i for i, text in enumerate(lines) if ".nonzero()" in text)
+    if syncs != {f"{tdeep.__file__}:{line}": 1}:
+        raise AssertionError(f"{what}: host synchronisations {syncs}, not only the gate's "
+                             f"index read at {tdeep.__file__}:{line}")
+
+
 def flow_err(card: torch.Tensor, cpu: torch.Tensor, tol: float, what: str) -> float:
     if not torch.isfinite(card).all():
         raise AssertionError(f"{what}: the card's flow is not finite")
@@ -2281,7 +2296,8 @@ def drive_deep_raft(dev):
     """``deep_roi_flow_step`` and ``deep_full_flow_step`` on RAFT-basic:
     K1 launched twice a ROI step (and equal to the plain crop, the whole
     step equal to the plain route's); no host synchronisation inside the
-    model or the step; the ROI flow within DEEP_FLOW_TOL of the port's on
+    model, exactly one in the step (the gate's index read); the ROI flow
+    within DEEP_FLOW_TOL of the port's on
     the CPU for the same pair and weights (float32 convolutions on the
     card), and within DEEP_TF32_TOL at PyTorch's defaults (TF32
     convolutions); then timed at the defaults and in float32, with the ROI
@@ -2309,8 +2325,9 @@ def drive_deep_raft(dev):
         wins = [troi.crop_windows_batch(x[None], oys, oxs, *DEEP_WIN) for x in (prevs[0], nxts[1])]
         model_syncs = host_syncs(lambda: backend.apply(*wins))
         step_syncs = host_syncs(roi)
-        if model_syncs or step_syncs:
-            raise AssertionError(f"deep_raft synchronised: {model_syncs} {step_syncs}")
+        if model_syncs:
+            raise AssertionError(f"deep_raft: the model synchronised: {model_syncs}")
+        deep_gate_sync_only(step_syncs, "deep_raft ROI step")
         ref = deep_roi_flow_step(mem.cpu(), prevs[0].cpu(), nxts[1].cpu(), cfg, cpu_backend)
         err = flow_err(out["flow"], ref["flow"], DEEP_FLOW_TOL, "deep_raft ROI")
         mask_eq = (out["mask"].cpu() == ref["mask"]).float().mean().item()
@@ -2392,7 +2409,8 @@ def deep_batch_inputs(dev):
 def drive_deep_batch(dev) -> dict:
     """``deep_roi_flow_batch`` at B = DEEP_B on RAFT-small and RAFT-basic:
     K1 twice a batch and equal to the plain crop (the batch equal to the
-    plain route's), each sample within DEEP_FLOW_TOL of its own
+    plain route's), one host synchronisation a batch, at the gate's index
+    read; each sample within DEEP_FLOW_TOL of its own
     ``deep_roi_flow_step`` (float32 convolutions), the batch at PyTorch's
     defaults within DEEP_TF32_TOL of the float32 one, timed.  Then
     ``BatchingEngine.for_deep_backend`` on RAFT-small (max_batch DEEP_B)
@@ -2415,6 +2433,8 @@ def drive_deep_batch(dev) -> dict:
                 raise AssertionError(f"deep_batch {kind}: launches {launches}")
             against_plain(call, out, ("flow", "mask", "box", "any_active"))
             deep_crop_check(prevs, out["box"])
+            syncs = host_syncs(call)
+            deep_gate_sync_only(syncs, f"deep_batch {kind}")
             err, mask_eq = 0.0, 1.0
             for i in range(DEEP_B):
                 one = deep_roi_flow_step(mems[i], prevs[i], nxts[i], cfg, backend)
@@ -2433,6 +2453,7 @@ def drive_deep_batch(dev) -> dict:
             raise AssertionError(f"deep_batch {kind} at the defaults: masks {mask_eq_tf32} equal")
         ms, samples = median_ms(call, [(mems, prevs, nxts), (mems, nxts, prevs)])
         emit({"phase": "deep_batch", "model": kind, "batch": DEEP_B, "launches": launches,
+              "host_syncs_per_call": sum(syncs.values()), "host_sync_sites": syncs,
               "flow_max_abs_err_vs_steps": err, "tolerance_px": DEEP_FLOW_TOL,
               "mask_equal_min_vs_steps": mask_eq,
               "flow_max_abs_err_at_defaults_vs_tf32_off": err_tf32,

@@ -69,8 +69,11 @@ LAUNCHES = {name: 0 for name in LAUNCH_KEYS}
 # the work of steps that launch no kernel of their own, counted where it
 # is done: the frames the SAM ground-truth step encodes and the box prompts
 # it decodes (data/gt_tooling.py::sam_gt_batch); RAFT's refinements whose
-# update block ran channels-last (models/raft.py::RAFT.forward)
-COUNTS = {"sam_frames": 0, "sam_boxes": 0, "raft_update_nhwc": 0}
+# update block ran channels-last (models/raft.py::RAFT.forward); the rows
+# the deep ROI steps ran their backend on and the inactive rows they
+# skipped (pipelines/deep_flow.py::_deep_roi_gate)
+COUNTS = {"sam_frames": 0, "sam_boxes": 0, "raft_update_nhwc": 0, "deep_flow_rows": 0,
+          "deep_flow_rows_skipped": 0}
 # per source built in this process: ptxas's resource lines of each kernel
 BUILD_INFO: dict[str, list[str]] = {}
 

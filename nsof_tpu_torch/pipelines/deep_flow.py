@@ -12,10 +12,15 @@ side are skipped (:133-135).
 A :class:`DeepBackend` binds a RAFT or FlowFormer module to a device.  Every
 ROI entry point crops its RGB windows with :func:`~nsof_tpu_torch.ops.roi.
 crop_windows_batch`, kernel K1 on a CUDA tensor (a 3-byte element), and
-raises when the window is larger than the frame.  The batched step
-:func:`deep_roi_flow_batch` runs the model once on a true ``[B, wh, ww,
-3]`` batch and pastes the windows, already zero outside their boxes, into
-zero frames at their origins.
+raises when the window is larger than the frame.  The backend sees only
+the rows the gate keeps, as the published pipelines skip the flow of a
+frame without a region: at the end of the gate the active rows' indices
+are read once a call, the one host synchronisation of a step; the model
+runs on those n rows and its flow is copied into a zero ``[B, wh, ww,
+2]`` window (no copy when every row is active, no model call when none
+is).  The batched step :func:`deep_roi_flow_batch` runs the model once on
+a true ``[n, wh, ww, 3]`` batch and pastes the windows, already zero
+outside their boxes, into zero frames at their origins.
 
 The backends leave PyTorch's precision settings as the caller has them.
 On Hopper cuDNN's convolutions take TF32 by default, which moved the flow
@@ -142,8 +147,15 @@ def _check_window(wh: int, ww: int, h: int, w: int) -> None:
 def _deep_roi_gate(mem, prev_rgb, next_rgb, cfg: PipelineConfig, backend: DeepBackend) -> dict:
     """The shared ROI gate and windowed deep flow of a batch: the merged
     (FLAG=2) box on the MEMSIZE/3 grid (raft_seg.py:460-464), active if
-    both sides reach MIN_REGION_PX; the RGB windows cropped at its origin
-    (K1 on the card); the backend's flow, zero outside the box."""
+    both sides reach MIN_REGION_PX; the active rows' indices read on the
+    host (the call's one synchronisation, at the end of ``nsof.gate``); the
+    RGB windows cropped at its origin (K1 on the card) and the active rows'
+    taken (``nsof.crop``); the backend's flow on those n rows only, copied
+    into a zero window of B rows (``nsof.deep.flow``), zero outside the
+    box.  Every output equals that of a backend run on all B rows: an
+    inactive row's flow was zeroed anyway.  ``_build.COUNTS`` gains the rows
+    the backend ran (``deep_flow_rows``) and those skipped
+    (``deep_flow_rows_skipped``)."""
     dev = backend.device
     mem = torch.as_tensor(mem).to(dev)
     prev = torch.as_tensor(prev_rgb).to(dev).contiguous()
@@ -151,6 +163,7 @@ def _deep_roi_gate(mem, prev_rgb, next_rgb, cfg: PipelineConfig, backend: DeepBa
     h, w = prev.shape[1:3]
     wh, ww = cfg.window_h or h, cfg.window_w or w
     _check_window(wh, ww, h, w)
+    b = prev.shape[0]
     with span("nsof.gate"):
         roi_cfg = dataclasses.replace(cfg.roi, memsize=max(cfg.roi.memsize // 3, 1))
         r = roi_ops.roi_boxes(mem, h, w, roi_cfg)
@@ -159,13 +172,26 @@ def _deep_roi_gate(mem, prev_rgb, next_rgb, cfg: PipelineConfig, backend: DeepBa
                   & ((box[:, 3] - box[:, 1]) >= MIN_REGION_PX))
         oys, oxs = roi_ops.window_origin(box, wh, ww, h, w)
         region_pct = roi_ops.region_percentage(box, h, w)
-        count("nsof.gate", rows=box.shape[0], active=active, box=box, oys=oys, oxs=oxs,
-              win=(wh, ww))
-    with span("nsof.crop"):
-        p_win = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
-        n_win = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)
+        count("nsof.gate", rows=b, active=active, box=box, oys=oys, oxs=oxs, win=(wh, ww))
+        # the call's one host synchronisation: the active rows, which alone
+        # go through the backend
+        idx = active.nonzero()[:, 0]
+        n = idx.numel()
+    _build.COUNTS["deep_flow_rows"] += n
+    _build.COUNTS["deep_flow_rows_skipped"] += b - n
+    if n:
+        with span("nsof.crop"):
+            p_win = roi_ops.crop_windows_batch(prev, oys, oxs, wh, ww)
+            n_win = roi_ops.crop_windows_batch(nxt, oys, oxs, wh, ww)
+            if n < b:  # the active rows' windows
+                p_win, n_win = p_win[idx], n_win[idx]
     with span("nsof.deep.flow"):
-        flow_win = _backend_flow(backend, p_win, n_win)
+        if 0 < n == b:
+            flow_win = _backend_flow(backend, p_win, n_win)
+        else:  # zero on the inactive rows
+            flow_win = torch.zeros((b, wh, ww, 2), dtype=torch.float32, device=dev)
+            if n:
+                flow_win.index_copy_(0, idx, _backend_flow(backend, p_win, n_win))
     with span("nsof.head"):
         inbox = roi_ops.window_box_mask(box, oys, oxs, wh, ww) & active[:, None, None]
         flow_win = torch.where(inbox[..., None], flow_win, 0.0)
@@ -253,12 +279,16 @@ def deep_roi_flow_batch(mem_u8, prev_rgb, next_rgb, cfg: PipelineConfig,
     maps and ``[B, H, W, 3]`` frame pairs → ``flow`` [B, H, W, 2], ``mask``
     [B, H, W], ``box`` [B, 4], ``any_active`` [B], ``region_pct`` [B].
 
-    The gate runs on the batch; the windows are cropped by K1 (on the card)
-    and go through the backend as one batch; the seg head thresholds
+    The gate runs on the batch and reads its active rows' indices once (the
+    call's one host synchronisation); the windows are cropped by K1 (on the
+    card) and the active rows' go through the backend as one batch, their
+    flow copied into a zero window of B rows; the seg head thresholds
     |flow|² (:func:`seg_head_window_batch`, as the JAX batch step does); the
     windows, zero outside their boxes, are pasted into zero frames.  The
-    spans: ``nsof.deep_roi_flow_batch`` holds ``nsof.gate``, ``nsof.crop``,
-    ``nsof.deep.flow`` (the padding, the backend's spans, the unpadding),
+    spans: ``nsof.deep_roi_flow_batch`` holds ``nsof.gate`` (with the index
+    read), ``nsof.crop`` (with the active rows' gather; absent when no row
+    is active), ``nsof.deep.flow`` (the padding, the backend's spans, the
+    unpadding, the copy into the B rows),
     ``nsof.head`` twice (the box mask and the flow's masking, then the seg
     head) and ``nsof.scatter``."""
     with span("nsof.deep_roi_flow_batch"):

@@ -174,14 +174,17 @@ class BatchingEngine:
 
         Call before serving traffic — warmup dispatches directly from
         the calling thread (deterministic bucket coverage, which queued
-        dummy requests could not guarantee under collector timing)."""
+        dummy requests could not guarantee under collector timing).  Every
+        cell of the state maps is at 255, so every row is active and a
+        step that runs its flow on the active rows only (the deep ROI
+        step) runs it on every bucket's full batch."""
         h, w = self.cfg.image_h, self.cfg.image_w
         gh, gw = self.mem_grid
         fshape = (h, w) if not self.frame_channels else (
             h, w, self.frame_channels
         )
         for b in self.buckets:
-            self._execute([np.zeros((gh, gw), np.uint8)] * b,
+            self._execute([np.full((gh, gw), 255, np.uint8)] * b,
                           [np.zeros(fshape, np.uint8)] * b,
                           [np.zeros(fshape, np.uint8)] * b)
 

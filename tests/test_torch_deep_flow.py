@@ -15,7 +15,13 @@ one level.  Also ``resize_third`` (exact where 3 divides the side, 1e-4
 otherwise, against ``jax.image.resize``); the window ≤ frame precondition, which raises on the CPU too;
 ``BatchingEngine.for_deep_backend`` (its state maps on the MEMSIZE/3 grid,
 each result equal to the direct ``deep_roi_flow_batch`` of the padded
-batch it went in).  ``tests/test_torch_cli.py`` runs the CLI's ``deep``.
+batch it went in; its warm-up runs the backend on every bucket whole).
+``tests/test_torch_cli.py`` runs the CLI's ``deep``.
+With a spy backend: the batch's backend sees only the active rows (a
+mixed batch; all rows, with no gather, when all are active; no call when
+none is), each row's outputs equal its own step's, and the rows run and
+skipped are counted; an inactive B = 1 step of each task makes no
+backend call.
 
 Measured here: flows within 4.2e-5 px (flows up to 26 px), masks, region
 percentages, tracking boxes and areas equal, predicted frames 99.94–99.98 %
@@ -37,6 +43,7 @@ from nsof_tpu.config import DATASETS as JDATASETS
 from nsof_tpu.models.raft import RAFT as JRAFT
 from nsof_tpu.models.raft import RaftConfig as JRaftConfig
 from nsof_tpu.pipelines import deep_flow as jdf
+from nsof_tpu_torch import _build
 from nsof_tpu_torch.config import config_from_dict
 from nsof_tpu_torch.models.convert import params_from_jax
 from nsof_tpu_torch.models.raft import RAFT, RaftConfig
@@ -153,6 +160,95 @@ def test_deep_roi_flow_batch_matches_jax(backends):
         torch.testing.assert_close(got["flow"][i], one["flow"], rtol=0, atol=1e-4)
 
 
+def _spy(backend, seen: list, refuse: bool = False):
+    """``backend`` with an ``apply`` that records the windows it is given,
+    or raises when ``refuse``."""
+    def apply(img1, img2):
+        if refuse:
+            raise AssertionError("the backend ran on a call with no active row")
+        seen.append(img1.clone())
+        return backend.apply(img1, img2)
+    return dataclasses.replace(backend, apply=apply)
+
+
+def _op_names(prof, span_name: str) -> list:
+    return [c.name for e in prof.events() if e.name == span_name for c in e.cpu_children]
+
+
+# samples of _inputs() a batch is made of: rows 0 and 1 active, row 2 not
+ROW_MIXES = {"mixed": [0, 1, 2], "all_active": [1, 0, 1], "none_active": [2, 2, 2]}
+
+
+@pytest.mark.parametrize("mix", sorted(ROW_MIXES))
+def test_deep_roi_flow_batch_runs_the_backend_on_the_active_rows_only(mix, backends):
+    """The backend sees exactly the active rows' windows (all B of them,
+    with no gather and no copy back, when every row is active; no call when
+    none is); every output equals the per-row ``deep_roi_flow_step``'s; the
+    ``nsof.flow`` count and ``_build.COUNTS`` hold the rows run and
+    skipped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nsof_tpu_torch.ops import roi as roi_ops
+    from nsof_tpu_torch.utils import timing
+
+    _, tbe = backends
+    rows = ROW_MIXES[mix]
+    mem, prev, nxt, _ = (torch.from_numpy(x[rows]) for x in _inputs())
+    active = [r != 2 for r in rows]
+    n, b = sum(active), len(rows)
+    seen = []
+    spy = _spy(tbe, seen, refuse=n == 0)
+    _build.reset_launches()
+    timing.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = tdf.deep_roi_flow_batch(mem, prev, nxt, TCFG, spy)
+    flow_counts = timing.counted("nsof.flow")
+    timing.reset_counts()
+    assert got["any_active"].tolist() == active
+    assert (_build.COUNTS["deep_flow_rows"], _build.COUNTS["deep_flow_rows_skipped"]) == (n, b - n)
+    assert flow_counts == ([{"rows": n, "px": WIN[0] * WIN[1]}] if n else [])
+    assert len(seen) == (1 if n else 0)
+    if n:
+        keep = torch.tensor([i for i in range(b) if active[i]])
+        oys, oxs = roi_ops.window_origin(got["box"][keep], *WIN, H, W)
+        assert torch.equal(seen[0], roi_ops.crop_windows_batch(prev[keep], oys, oxs, *WIN))
+    # the plain K1 indexes each frame once; the active rows' gather twice more
+    gathers = _op_names(prof, "nsof.crop").count("aten::index") - (2 if n else 0)
+    copies = _op_names(prof, "nsof.deep.flow").count("aten::index_copy_")
+    assert (gathers, copies) == ((2, 1) if 0 < n < b else (0, 0))
+    for i in range(b):
+        one = tdf.deep_roi_flow_step(mem[i], prev[i], nxt[i], TCFG, tbe)
+        _close({k: v[i] for k, v in got.items()}, one, BATCH_KEYS)
+    if n < b:
+        assert not got["flow"][~got["any_active"]].any()
+        assert not got["mask"][~got["any_active"]].any()
+
+
+@pytest.mark.parametrize("task", sorted(ROI_STEPS))
+def test_inactive_deep_roi_step_makes_no_backend_call(task, backends):
+    """At B = 1 a sample whose box is under 64 px makes no backend call:
+    no flow, no mask, no tracked box, the frame passed through unwarped;
+    the gate's box and region percentage as the gate computes them."""
+    from nsof_tpu_torch.ops import roi as roi_ops
+
+    _, tbe = backends
+    step, keys = ROI_STEPS[task]
+    mem, prev, nxt, fut = _inputs()
+    got = step(mem[2], prev[2], nxt[2], fut[2], TCFG, _spy(tbe, [], refuse=True), tdf)
+    roi_cfg = dataclasses.replace(TCFG.roi, memsize=TCFG.roi.memsize // 3)
+    box = roi_ops.roi_boxes(torch.from_numpy(mem[2:3]), H, W, roi_cfg)["merged"][0]
+    assert not bool(got["any_active"]) and torch.equal(got["box"], box)
+    assert float(got["region_pct"]) == float(roi_ops.region_percentage(box, H, W))
+    if "flow" in got:
+        assert not got["flow"].any()
+    if "mask" in got:
+        assert not got["mask"].any()
+    if "valid" in got:
+        assert not got["valid"].any()
+    if "pred" in got:
+        np.testing.assert_array_equal(got["pred"].numpy(), fut[2])
+
+
 @pytest.mark.parametrize("shape", [(2, 96, 144, 3), (2, 100, 151, 3)],
                          ids=["divisible", "ragged"])
 def test_resize_third_matches_jax(shape):
@@ -200,8 +296,11 @@ def test_deep_engine_results_equal_their_batches(backends):
         return run(m, p, n)
 
     try:
+        _build.reset_launches()
         eng.warmup()
         assert warm == [(k, 6, 9) for k in (1, 2, 4)]
+        # every warm-up row is active, so the backend ran on each bucket whole
+        assert (_build.COUNTS["deep_flow_rows"], _build.COUNTS["deep_flow_rows_skipped"]) == (7, 0)
         eng._run, eng._dispatch = recording_run, recording_dispatch
         mem, prev, nxt, _ = _inputs()
         reqs = [(mem[i % 3], prev[i % 3], nxt[(i + i // 3) % 3]) for i in range(7)]

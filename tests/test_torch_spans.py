@@ -19,7 +19,8 @@ The work counters (``timing.count``): nothing is recorded without a
 profiler; under one, a ``seg_batch_fast`` call and a deep ROI step (a stub
 backend on 96×144 RGB frames, a 60×90 window the backend sees padded to
 64×96) each record one ``nsof.gate`` and one ``nsof.flow`` entry, B = 4 with
-row 0 inactive, and their outputs are bit-equal to those of an unprofiled
+row 0 inactive (the Farnebäck flow computes 4 rows, the deep backend the 3
+active ones), and their outputs are bit-equal to those of an unprofiled
 call; the kept area from box and window coordinates
 (``benchmark/counts.py::kept_px``) equals the summed box mask of the active
 rows; the record keeps the newest 64 entries a name.
@@ -266,7 +267,8 @@ def test_deep_roi_gate_counts_its_gate_and_flow_once():
     g = gate[0]
     assert g["rows"] == B and g["win"] == DEEP_WIN and g["active"] is got["any_active"]
     assert g["active"].tolist() == [False, True, True, True]
-    assert flow[0] == {"rows": B, "px": 64 * 96}  # the window padded to /8
+    # the backend ran on the three active rows, the window padded to /8
+    assert flow[0] == {"rows": B - 1, "px": 64 * 96}
     _assert_kept_px(g)
     assert int(got["inbox"].sum()) == kept_px(g) > 0
     timing.reset_counts()
